@@ -1,0 +1,15 @@
+"""The port's device rule: the card unless the caller asks for the CPU."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``; with no card that raises instead of running
+    on the CPU.  Pass ``device="cpu"`` to run the plain versions there."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU explicitly")
+    return dev

@@ -1,0 +1,62 @@
+"""Carry the reference's data across: numpy arrays and plain numbers in, the
+port's objects out.
+
+The JAX package cannot share tensors with this one, and the port cannot
+regenerate ``jax.random`` streams, so a comparison hands both packages the
+same arrays, including the pre-drawn miss latencies ``z_draw``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.distributions import make_distribution
+from .core.ranking import PolicyParams
+from .core.state import ObjStats
+from .core.trace import Trace
+
+
+def trace_from_arrays(times, objs, sizes, z_mean, z_draw,
+                      device=None) -> Trace:
+    """A :class:`Trace` from array-likes (f32 times/sizes/latencies, int
+    object ids), on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    f32 = lambda x: torch.as_tensor(np.array(x, np.float32), device=dev)
+    return Trace(times=f32(times),
+                 objs=torch.as_tensor(np.array(objs, np.int32),
+                                      device=dev),
+                 sizes=f32(sizes), z_mean=f32(z_mean), z_draw=f32(z_draw))
+
+
+def params_from_dict(d: dict) -> PolicyParams:
+    """:class:`PolicyParams` from plain numbers.
+
+    Keys are PolicyParams' fields (``omega``, ``cala_beta``, ``adapt_c``,
+    ``cold_rate``, ``window``, ``resid`` or ``resid_rate``); ``dist`` is a
+    law's registry name, or ``(name, {parameter: value})``."""
+    d = dict(d)
+    dist = d.pop("dist", "exponential")
+    name, kw = (dist, {}) if isinstance(dist, str) else dist
+    known = {f.name for f in dataclasses.fields(PolicyParams)} | {"resid"}
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"unknown PolicyParams keys: {sorted(unknown)}")
+    return PolicyParams(dist=make_distribution(name, **dict(kw)), **d)
+
+
+def obj_stats_from_arrays(device=None, **fields) -> ObjStats:
+    """An :class:`ObjStats` from one array per field (bool ``cached`` and
+    ``in_flight``, f32 otherwise), each ``[N]`` or ``[L, N]``."""
+    dev = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(ObjStats)]
+    missing = set(names) - set(fields)
+    if missing:
+        raise ValueError(f"missing ObjStats fields: {sorted(missing)}")
+    out = {}
+    for n in names:
+        dt = np.bool_ if n in ("cached", "in_flight") else np.float32
+        out[n] = torch.as_tensor(np.asarray(fields[n], dt), device=dev)
+    return ObjStats(**out)

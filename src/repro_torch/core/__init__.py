@@ -1,0 +1,32 @@
+"""Core of the port: the paper's delayed-hit caching technique in PyTorch.
+
+- :mod:`delay_stats`   Theorem 1 & 2 moments + Monte-Carlo oracle
+- :mod:`distributions` miss-latency laws (Deterministic / Exponential /
+                       Erlang / Hyperexponential / Monte Carlo)
+- :mod:`ranking`       eq. 16 ranking + every §5.1 baseline
+- :mod:`state`         dense ``[L, N]`` simulator state
+- :mod:`trace`         trace schema
+- :mod:`simulator`     ``simulate`` / ``latency_improvement``
+"""
+from .delay_stats import (agg_mean_from_moments, agg_var_from_moments,
+                          det_mean, det_var, stoch_mean, stoch_std, stoch_var)
+from .distributions import (DISTRIBUTIONS, Deterministic, Erlang, Exponential,
+                            Hyperexponential, MissLatency, MonteCarlo,
+                            make_distribution)
+from .ranking import (BASELINES, OURS, POLICIES, Policy, PolicyParams,
+                      Substrate, make_substrate)
+from .simulator import (EVICT_TOP, SimResult, latency_improvement,
+                        resolve_score_mode, simulate)
+from .state import ObjStats, SimState, init_state
+from .trace import Trace, make_trace
+
+__all__ = [
+    "agg_mean_from_moments", "agg_var_from_moments",
+    "det_mean", "det_var", "stoch_mean", "stoch_std", "stoch_var",
+    "DISTRIBUTIONS", "Deterministic", "Erlang", "Exponential",
+    "Hyperexponential", "MissLatency", "MonteCarlo", "make_distribution",
+    "BASELINES", "OURS", "POLICIES", "Policy", "PolicyParams",
+    "Substrate", "make_substrate",
+    "EVICT_TOP", "SimResult", "latency_improvement", "resolve_score_mode",
+    "simulate", "ObjStats", "SimState", "init_state", "Trace", "make_trace",
+]

@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes exactly what its CUDA kernel computes, in the same
+f32 operation order, so on the card the two agree bit for bit (the kernels
+are built with ``--fmad=false``).  The wrappers in
+:mod:`repro_torch.kernels.ranking_score` and
+:mod:`repro_torch.kernels.lane_scatter` run these for tensors that lie on the
+CPU; on a CUDA tensor they launch the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+# Scores at or above this value count as +inf in the victim selection (the
+# kernel family's sentinel convention, judged by value, never by index).
+SENTINEL = 3.4e38
+
+
+def eq16_scores(lam, z, resid, sizes, omega: float) -> torch.Tensor:
+    """Paper eq. 16 with Theorem-2 moments:
+    ``(E[D] + omega * sigma[D]) / (max(R, 1e-6) * max(s, 1e-6))``."""
+    z2 = z * z
+    e = z + lam * z2
+    var = z2 + 6.0 * lam * z2 * z + 5.0 * lam * lam * z2 * z2
+    return (e + omega * torch.sqrt(var)) / (
+        torch.clamp(resid, min=1e-6) * torch.clamp(sizes, min=1e-6))
+
+
+def _masked(f, cached):
+    return torch.where(cached & (f < SENTINEL), f, float("inf"))
+
+
+def ranking_scores_ref(lam, z, resid, sizes, cached, omega: float):
+    """Eq.-16 scores plus the masked argmin victim.
+
+    Returns ``(scores [N], victim_idx, victim_score)``: the lowest score
+    over cached entries (first index on ties); entries not cached, or
+    scoring at or above :data:`SENTINEL`, count as +inf."""
+    f = eq16_scores(lam, z, resid, sizes, omega)
+    masked = _masked(f, cached)
+    idx = torch.argmin(masked)
+    return f, idx.to(torch.int32), masked[idx]
+
+
+def victim_order_ref(scores, cached, top: int):
+    """Masked ascending victim order: the ``top`` lowest-scored cached
+    objects in ascending ``(score, index)`` order, as ``(idx i32[top],
+    vals f32[top])``.  Non-cached entries are +inf, so once the real
+    victims run out the order continues with +inf sentinels (in index
+    order) and any rank-compare admission check fails closed.  This is the
+    sequence an evict-until-fit loop re-running a masked argmin after each
+    eviction would visit."""
+    masked = torch.where(cached, scores, float("inf"))
+    vals, idx = torch.sort(masked, stable=True)
+    return idx[:top].to(torch.int32), vals[:top]
+
+
+def ranking_victim_order_ref(lam, z, resid, sizes, cached, omega: float,
+                             top: int):
+    """Eq.-16 scores and the ``top`` victim order over them, as
+    ``(scores [N], idx i32[top], vals f32[top])``; scores at or above
+    :data:`SENTINEL` count as +inf."""
+    f = eq16_scores(lam, z, resid, sizes, omega)
+    vals, idx = torch.sort(_masked(f, cached), stable=True)
+    return f, idx[:top].to(torch.int32), vals[:top]
+
+
+def lane_scatter_set_ref(x, idx, val, valid=None):
+    """``x[l, idx[l]] = val[l]`` for every lane ``l`` where ``valid[l]``
+    (all lanes when None), in place; returns ``x``.  An invalid lane keeps
+    its own bits."""
+    lanes = torch.arange(x.shape[0], device=x.device)
+    idx = idx.long()
+    val = val.to(x.dtype)
+    if valid is not None:
+        val = torch.where(valid, val, x[lanes, idx])
+    x[lanes, idx] = val
+    return x
+
+
+def lane_scatter_add_ref(x, idx, val, valid=None):
+    """``x[l, idx[l]] += val[l]`` per valid lane, in place (logical OR for
+    bool ``x``); returns ``x``.  The sum is formed on the gathered element."""
+    lanes = torch.arange(x.shape[0], device=x.device)
+    idx = idx.long()
+    cur = x[lanes, idx]
+    new = cur | val.to(torch.bool) if x.dtype == torch.bool \
+        else cur + val.to(x.dtype)
+    if valid is not None:
+        new = torch.where(valid, new, cur)
+    x[lanes, idx] = new
+    return x

@@ -10,10 +10,14 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 1. each kernel's wrapper against its plain PyTorch version on the card,
    bitwise, at the main path's shapes, with CUDA-event timings;
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
-   the fig2 synthetic workload, plus the card's run against the CPU run of
-   the same small trace;
+   the fig2 synthetic workload through the kernels, held bitwise against
+   the same run through the plain versions on the card, plus the card's
+   run against the CPU run of a small trace;
 3. the state at deployment size: a dense table over 2^20 objects, with the
-   kernel path held against the plain path, and the kernels' launch counts.
+   kernel path held against the plain path and the ``evict_top=0`` path.
+
+Each main-path run starts from zeroed launch counts and must launch every
+kernel it reaches; a run through the plain versions must launch none.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 before it come the ``kernels`` JSON line and the card's name and power
@@ -138,7 +142,9 @@ def phase_kernels() -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(99)
     lane_cases = 0
-    for lanes in (1, 2, 8):
+    # 12 and 24 rows are the main path's stacked f32 fields (1 and 2
+    # lanes), 2 and 4 rows its stacked bool fields
+    for lanes in (1, 2, 4, 8, 12, 24):
         for dtype in (torch.float32, torch.int32, torch.bool):
             for add in (False, True):
                 for masked in (False, True):
@@ -170,7 +176,8 @@ def phase_kernels() -> dict:
                             f"add={add} masked={masked}")
                     lane_cases += 1
     log(f"phase 1: lane_scatter bitwise equal to plain over {lane_cases} "
-        f"cases (L 1/2/8; f32/i32/bool; set/add; masked or not)")
+        f"cases (L 1/2/4/8/12/24; f32/i32/bool; set/add; masked or "
+        f"not)")
 
     # --- timings at the main path's shapes --------------------------------
     args = ranking_inputs(N_DEPLOY, 0.5, seed=1234)
@@ -220,9 +227,40 @@ def same_result(a, b) -> bool:
                          "n_evictions"))
 
 
-def phase_paper() -> None:
-    """Eq. 17 on the fig2 workload; the card against the CPU on a small
-    trace."""
+def drive(label, fn, needs=()):
+    """One run of a path from zeroed launch counts; ``needs`` names the
+    kernels the run must launch (an empty tuple: the run must launch
+    none).  Returns the path's output, its counters and its launch
+    counts."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    counts = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(counts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc = launch_counts()
+    log(f"{label}: {counts['requests'] / dt:.1f} req/s, "
+        f"{counts['syncs'] / counts['requests']:.3f} syncs/request, "
+        f"{counts['scoring_commits']} scoring commits, launches {lc}")
+    for k in needs:
+        if lc[k] <= 0:
+            raise AssertionError(f"{label} did not launch {k}")
+    if not needs and any(lc.values()):
+        raise AssertionError(f"{label} launched kernels: {lc}")
+    return out, counts, lc
+
+
+def add_launches(total: dict, lc: dict) -> None:
+    for k, v in lc.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_paper(launches: dict) -> None:
+    """Eq. 17 on the fig2 workload, kernels against plain versions; the
+    card against the CPU on a small trace."""
     import torch
     from repro_torch.core import PolicyParams, latency_improvement, simulate
     from repro_torch.data.traces import SyntheticSpec, synthetic_trace
@@ -243,29 +281,36 @@ def phase_paper() -> None:
                          rate=2000.0, latency_base=0.005,
                          latency_per_mb=2e-4, stochastic=True)
     tr = synthetic_trace(torch.Generator().manual_seed(0), spec)
-    counts = {}
-    t0 = time.perf_counter()
-    impr = float(latency_improvement(
-        tr, 500.0, "stoch_vacdh", "lru",
-        params=PolicyParams(omega=1.0, resid="recency"), estimate_z=True,
-        use_kernel=True, counters=counts))
-    dt = time.perf_counter() - t0
+    params = PolicyParams(omega=1.0, resid="recency")
+    runs = {}
+    for mode, needs in ((True, ("ranking_victim_order", "lane_scatter")),
+                        ("ref", ())):
+        runs[mode] = drive(
+            f"phase 2: fig2 latency_improvement(use_kernel={mode!r})",
+            lambda c, mode=mode: latency_improvement(
+                tr, 500.0, "stoch_vacdh", "lru", params=params,
+                estimate_z=True, use_kernel=mode, counters=c),
+            needs)
+    (impr, counts, lc), (plain, plain_counts, _) = runs[True], runs["ref"]
+    add_launches(launches, lc)
+    if not (bitwise_equal(impr, plain) and counts == plain_counts):
+        raise AssertionError(f"fig2: kernels {float(impr)} {counts} != "
+                             f"plain {float(plain)} {plain_counts}")
+    impr = float(impr)
     log(f"phase 2: fig2 workload (100 objects, 30000 requests, C=500 MB): "
         f"improvement over LRU {impr * 100:.3f}% (paper band 3-30%), "
-        f"{counts['requests'] / dt:.1f} req/s, "
-        f"{counts['syncs'] / counts['requests']:.3f} syncs/request")
+        f"kernels == plain bitwise")
     if not 0.03 <= impr <= 0.30:
         raise AssertionError(f"improvement {impr} outside the 3-30% band")
 
 
-def phase_deploy(n_requests: int) -> dict:
+def phase_deploy(n_requests: int, launches: dict) -> None:
     """Dense state over 2^20 objects on the card; kernel path vs plain."""
     import torch
     from repro_torch.core import (PolicyParams, latency_improvement,
                                   simulate)
     from repro_torch.core.state import F32_FIELDS
     from repro_torch.data.traces import SyntheticSpec, synthetic_trace
-    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     spec = SyntheticSpec(n_objects=N_DEPLOY, n_requests=n_requests,
                          zipf_alpha=0.9, rate=2000.0, latency_base=0.005,
@@ -278,59 +323,45 @@ def phase_deploy(n_requests: int) -> dict:
         f"{n_requests} requests, {touched.numel()} objects touched, "
         f"capacity {capacity:.1f} MB")
     params = PolicyParams(omega=1.0, resid="recency")
-    launches = {}
 
-    def drive(label, fn):
-        counts = {}
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(counts)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        lc = launch_counts()
-        log(f"phase 3: {label}: {counts['requests'] / dt:.1f} req/s, "
-            f"{counts['syncs'] / counts['requests']:.3f} syncs/request, "
-            f"{counts['scoring_commits']} scoring commits, launches {lc}")
-        return out, lc
+    def sim(use_kernel, evict_top=None):
+        return lambda c: simulate(tr, capacity, "stoch_vacdh", params,
+                                  estimate_z=True, use_kernel=use_kernel,
+                                  evict_top=evict_top, counters=c)
 
-    kern, lc = drive("simulate(kernel)", lambda c: simulate(
-        tr, capacity, "stoch_vacdh", params, estimate_z=True,
-        use_kernel=True, counters=c))
-    for k in ("ranking_victim_order", "lane_scatter"):
-        if lc[k] <= 0:
-            raise AssertionError(f"{k} was not launched by simulate")
-        launches[k] = launches.get(k, 0) + lc[k]
-    plain, _ = drive("simulate(ref)", lambda c: simulate(
-        tr, capacity, "stoch_vacdh", params, estimate_z=True,
-        use_kernel="ref", counters=c))
+    kern, _, lc = drive("phase 3: simulate(kernels)", sim(True),
+                        ("ranking_victim_order", "lane_scatter"))
+    add_launches(launches, lc)
+    plain, _, _ = drive("phase 3: simulate(plain versions)", sim("ref"))
     if not same_result(kern, plain):
         raise AssertionError(f"kernel path {kern} != plain path {plain}")
     log(f"phase 3: kernel == plain: latency {float(kern.total_latency)}, "
         f"hits {int(kern.n_hits)}, delayed {int(kern.n_delayed)}, misses "
         f"{int(kern.n_misses)}, evictions {int(kern.n_evictions)}")
+    top0, _, lc = drive("phase 3: simulate(kernels, evict_top=0)",
+                        sim(True, 0), ("ranking_scores", "lane_scatter"))
+    add_launches(launches, lc)
+    if not same_result(kern, top0):
+        raise AssertionError(f"evict_top=0 {top0} != evict_top=8 {kern}")
+    log("phase 3: evict_top=0 == evict_top=8, every counter and the "
+        "latency bit")
 
-    impr, lc = drive("latency_improvement(kernel)",
-                     lambda c: latency_improvement(
-                         tr, capacity, "stoch_vacdh", "lru", params,
-                         estimate_z=True, use_kernel=True, counters=c))
-    for k in ("ranking_scores", "lane_scatter"):
-        if lc[k] <= 0:
-            raise AssertionError(f"{k} was not launched by "
-                                 f"latency_improvement")
-        launches[k] = launches.get(k, 0) + lc[k]
+    impr, _, lc = drive(
+        "phase 3: latency_improvement(kernels)",
+        lambda c: latency_improvement(tr, capacity, "stoch_vacdh", "lru",
+                                      params, estimate_z=True,
+                                      use_kernel=True, counters=c),
+        ("ranking_victim_order", "lane_scatter"))
+    add_launches(launches, lc)
     if not torch.isfinite(impr):
         raise AssertionError(f"improvement {impr} is not finite")
     log(f"phase 3: improvement over LRU {float(impr) * 100:.3f}%")
-    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=20_000,
                     help="requests of the deployment-size replay (phase 3)")
-    ap.add_argument("--phases", default="123",
-                    help="phases to run after the build, e.g. '1'")
     args = ap.parse_args()
 
     import torch
@@ -345,10 +376,11 @@ def main() -> int:
     libs = _build.build_all()
     log(f"phase 0: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    timings = phase_kernels() if "1" in args.phases else {}
-    if "2" in args.phases:
-        phase_paper()
-    launches = phase_deploy(args.requests) if "3" in args.phases else {}
+    timings = phase_kernels()
+    launches = {}
+    phase_paper(launches)
+    phase_deploy(args.requests, launches)
+    log(f"launches over the main-path runs of phases 2-3: {launches}")
 
     meta = {
         "ranking_victim_order": ("kernels/csrc/ranking_score.cu",
@@ -360,14 +392,14 @@ def main() -> int:
     }
     kernels = []
     for name, (src, replaces) in meta.items():
-        tm = timings.get(name, {})
+        tm = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/" + src, "replaces": replaces,
-            "launches": launches.get(name, 0),
-            "max_abs_err": tm.get("max_abs_err"), "ms": tm.get("ms"),
-            "plain_ms": tm.get("plain_ms"), "bound_ms": tm.get("bound_ms"),
-            "bound_by": "bytes", "library_ms": tm.get("library_ms")})
+            "launches": launches[name],
+            "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": "bytes", "library_ms": tm["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

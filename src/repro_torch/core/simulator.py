@@ -26,7 +26,10 @@ Where the work runs:
 - A commit that needs space scores the whole table on the device (the
   eq.-16 kernels for the paper's policy, the policy's epilogue otherwise),
   then reads back the ascending victim order once; the evict-until-fit
-  loop walks it on the host in f32.  Evicting more than ``evict_top``
+  loop walks it on the host in f32.  ``simulate`` and
+  ``latency_improvement`` score the eq.-16 lane alike: through
+  ``ranking_victim_order``, or through ``ranking_scores`` when
+  ``evict_top=0``.  Evicting more than ``evict_top``
   victims for one admission falls back to a per-eviction argmin on the
   device (phase 2), bitwise identical to walking a longer order.
 
@@ -65,7 +68,8 @@ EVICT_TOP = 8
 #   'rank'   the policy's epilogue over the substrate
 #   'kernel' the eq.-16 CUDA kernels for the paper's policy (their plain
 #            versions when the state lies on the CPU)
-#   'ref'    the kernels' plain PyTorch versions, on any device
+#   'ref'    the plain PyTorch versions of every kernel (the eq.-16
+#            scoring and the lane-scatter writes), on any device
 _SCORE_MODES = ("rank", "kernel", "ref")
 
 _F = np.float32
@@ -140,17 +144,15 @@ class _Engine:
 
     def __init__(self, trace: Trace, capacity: float, policies: tuple,
                  params: PolicyParams, estimate_z: bool, score_mode: str,
-                 evict_top, generator: torch.Generator, multi: bool):
+                 evict_top, generator: torch.Generator):
         self.dev = trace.device
         self.L = len(policies)
         self.pols = [POLICIES[n] for n in policies]
         self.p = params
         self.estimate_z = estimate_z
         self.mode = score_mode
-        # lanes of latency_improvement score like the reference's
-        # multi-policy graph: the eq.-16 row through ranking_scores, then
-        # the plain victim order over it
-        self.multi = multi
+        self._lane_write = (_ref.lane_scatter_set_ref if score_mode == "ref"
+                            else lane_scatter_set)
         self.n = trace.n_objects
         self.top = min(EVICT_TOP if evict_top is None else int(evict_top),
                        self.n)
@@ -231,7 +233,7 @@ class _Engine:
             if valid is not None:
                 d_valid = buf[off:off + r] != 0
                 off += r
-            lane_scatter_set(x, d_idx, d_val, d_valid)
+            self._lane_write(x, d_idx, d_val, d_valid)
 
     def _point_writes(self, idx, new_f, new_b):
         """All fields of every lane at ``idx[l]``: rows (field, lane)."""
@@ -254,7 +256,7 @@ class _Engine:
         if self._kernelable(li):
             args = (sub.lam, sub.z_est, sub.resid, self.sizes, o.cached)
             kern = self.mode == "kernel"
-            if top and not self.multi:
+            if top:
                 if kern:
                     return _rs.ranking_victim_order(*args, omega=omega,
                                                     top=top)
@@ -491,7 +493,7 @@ class _Engine:
 
 
 def _run(trace, capacity, policies, params, generator, estimate_z,
-         use_kernel, evict_top, device, counters, multi):
+         use_kernel, evict_top, device, counters):
     dev = resolve_device(device)
     for name in policies:
         if name not in POLICIES:
@@ -503,7 +505,7 @@ def _run(trace, capacity, policies, params, generator, estimate_z,
         generator = torch.Generator().manual_seed(0)
     eng = _Engine(_trace_on(trace, dev), capacity, tuple(policies), params,
                   estimate_z, resolve_score_mode(use_kernel, dev), evict_top,
-                  generator, multi)
+                  generator)
     res = eng.run()
     if counters is not None:
         for k, v in eng.stats().items():
@@ -526,7 +528,7 @@ def simulate(trace: Trace, capacity: float, policy: str = "stoch_vacdh",
     when given, accumulates requests, device syncs, commits and scoring
     commits."""
     return _run(trace, capacity, (policy,), params, generator, estimate_z,
-                use_kernel, evict_top, device, counters, multi=False)[0]
+                use_kernel, evict_top, device, counters)[0]
 
 
 def latency_improvement(trace: Trace, capacity: float, policy: str,
@@ -542,6 +544,6 @@ def latency_improvement(trace: Trace, capacity: float, policy: str,
     The policy and the baseline run as two lanes of one state; each lane's
     result equals its single-lane :func:`simulate` bit for bit."""
     res = _run(trace, capacity, (policy, baseline), params, generator,
-               estimate_z, use_kernel, None, device, counters, multi=True)
+               estimate_z, use_kernel, None, device, counters)
     la, lb = res[0].total_latency, res[1].total_latency
     return (lb - la) / lb

@@ -17,12 +17,14 @@ of requests and prints one JSON line per cell with:
   around the engine's methods; they include the time spent waiting on
   the device at each read-back.
 
+Prints the card's name and power limit (as nvidia-smi gives them) first.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -126,7 +128,10 @@ def main() -> int:
                  use_kernel=True, counters=c)
         return c
 
-    print(torch.cuda.get_device_name(0), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
     profile_cell("fig2", run_fig2)
     profile_cell("deploy", run_deploy)
     return 0

@@ -146,7 +146,7 @@ def test_latency_improvement_lanes_bitwise_match_simulate():
     for pair in (("stoch_vacdh", "lru"), ("lru_mad", "adaptsize")):
         lanes = _run(trace, CAP, pair, None,
                      torch.Generator().manual_seed(3), True, None, None,
-                     "cpu", None, multi=True)
+                     "cpu", None)
         impr = latency_improvement(trace, CAP, *pair, estimate_z=True,
                                    generator=torch.Generator().manual_seed(3),
                                    device="cpu")

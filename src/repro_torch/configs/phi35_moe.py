@@ -1,0 +1,10 @@
+"""Phi-3.5-MoE-42B (6.6B active) [hf:microsoft/Phi-3.5-MoE-instruct; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=6400, vocab=32064,
+    n_experts=16, top_k=2, mlp_act="swiglu",
+    rope_theta=10_000.0,
+)

@@ -60,3 +60,28 @@ def obj_stats_from_arrays(device=None, **fields) -> ObjStats:
         dt = np.bool_ if n in ("cached", "in_flight") else np.float32
         out[n] = torch.as_tensor(np.asarray(fields[n], dt), device=dev)
     return ObjStats(**out)
+
+
+def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+    """The port's LM parameters from the JAX package's parameter pytree
+    given as numpy arrays (``transformer.init_params``).
+
+    The stacked ``[L, ...]`` leaves of ``tree["layers"]`` are split into one
+    dict per layer.  Weights keep their ``(d_in, d_out)`` layout, so no
+    transpose is needed.  Every leaf is cast to ``cfg.torch_dtype`` via
+    f32 (exact for bf16 and f32 leaves)."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.as_tensor(np.array(x, np.float32),
+                               device=dev).to(cfg.torch_dtype)
+
+    def tree_map(f, t):
+        return ({k: tree_map(f, v) for k, v in t.items()}
+                if isinstance(t, dict) else f(t))
+
+    out = {k: tree_map(leaf, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [tree_map(lambda x, i=i: leaf(np.asarray(x)[i]),
+                              tree["layers"])
+                     for i in range(cfg.n_layers)]
+    return out

@@ -53,6 +53,7 @@ from .._device import resolve_device
 from ..kernels import ranking_score as _rs
 from ..kernels import ref as _ref
 from ..kernels.lane_scatter import lane_scatter_set
+from . import prng
 from .distributions import Exponential
 from .ranking import (EPS, POLICIES, PolicyParams, _f32, epi_stochastic_vacdh,
                       make_substrate)
@@ -144,7 +145,7 @@ class _Engine:
 
     def __init__(self, trace: Trace, capacity: float, policies: tuple,
                  params: PolicyParams, estimate_z: bool, score_mode: str,
-                 evict_top, generator: torch.Generator):
+                 evict_top, key):
         self.dev = trace.device
         self.L = len(policies)
         self.pols = [POLICIES[n] for n in policies]
@@ -156,7 +157,8 @@ class _Engine:
         self.n = trace.n_objects
         self.top = min(EVICT_TOP if evict_top is None else int(evict_top),
                        self.n)
-        self.gen = generator
+        # each AdaptSize lane's coin key, split at every commit of that lane
+        self.keys = [tuple(int(k) for k in key)] * self.L
         self.trace = trace
         self.sizes = trace.sizes
         self.sizes_np = trace.sizes.cpu().numpy()
@@ -312,8 +314,9 @@ class _Engine:
         # --- admission coin (AdaptSize) ------------------------------------
         admit_ok = np.ones(L, bool)
         for li in np.flatnonzero(due & self.adapt):
-            u = _F(torch.rand((), generator=self.gen).item())
-            admit_ok[li] = u < np.exp(-s_j[li:li + 1] / self.adapt_c)[0]
+            self.keys[li], sub = prng.split(self.keys[li])
+            admit_ok[li] = prng.uniform(sub) < np.exp(
+                -s_j[li:li + 1] / self.adapt_c)[0]
 
         # --- GreedyDual H refresh at the exact completion time ---------------
         if self.gd.any():
@@ -492,7 +495,7 @@ class _Engine:
                 "commits": self.commits, "scoring_commits": self.scored}
 
 
-def _run(trace, capacity, policies, params, generator, estimate_z,
+def _run(trace, capacity, policies, params, key, estimate_z,
          use_kernel, evict_top, device, counters):
     dev = resolve_device(device)
     for name in policies:
@@ -501,11 +504,9 @@ def _run(trace, capacity, policies, params, generator, estimate_z,
                              f"{sorted(POLICIES)}")
     if params is None:
         params = PolicyParams()
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     eng = _Engine(_trace_on(trace, dev), capacity, tuple(policies), params,
                   estimate_z, resolve_score_mode(use_kernel, dev), evict_top,
-                  generator)
+                  key)
     res = eng.run()
     if counters is not None:
         for k, v in eng.stats().items():
@@ -515,8 +516,7 @@ def _run(trace, capacity, policies, params, generator, estimate_z,
 
 def simulate(trace: Trace, capacity: float, policy: str = "stoch_vacdh",
              params: PolicyParams | None = None,
-             generator: torch.Generator | None = None,
-             estimate_z: bool = False, use_kernel=None,
+             key=(0, 0), estimate_z: bool = False, use_kernel=None,
              evict_top: int | None = None, device=None,
              counters: dict | None = None) -> SimResult:
     """Run one policy over a trace on ``device`` (None: the card).
@@ -524,26 +524,28 @@ def simulate(trace: Trace, capacity: float, policy: str = "stoch_vacdh",
     ``use_kernel`` picks the eq.-16 scoring backend
     (:func:`resolve_score_mode`); ``evict_top`` the victim-order length
     (:data:`EVICT_TOP`; results are bitwise identical for every value).
-    ``generator`` (CPU) draws the AdaptSize admission coins.  ``counters``,
+    ``key`` is the key data ``(k0, k1)`` of the AdaptSize admission coin
+    stream (``(0, 0)`` is ``jax.random.key(0)``); the coins
+    equal the JAX package's bit for bit (:mod:`.prng`).  ``counters``,
     when given, accumulates requests, device syncs, commits and scoring
     commits."""
-    return _run(trace, capacity, (policy,), params, generator, estimate_z,
+    return _run(trace, capacity, (policy,), params, key, estimate_z,
                 use_kernel, evict_top, device, counters)[0]
 
 
 def latency_improvement(trace: Trace, capacity: float, policy: str,
                         baseline: str = "lru",
                         params: PolicyParams | None = None,
-                        generator: torch.Generator | None = None,
-                        estimate_z: bool = False, use_kernel=None,
-                        device=None,
+                        key=(0, 0), estimate_z: bool = False,
+                        use_kernel=None, device=None,
                         counters: dict | None = None) -> torch.Tensor:
     """Paper eq. 17: (Latency(baseline) - Latency(policy)) /
     Latency(baseline), in f32.
 
     The policy and the baseline run as two lanes of one state; each lane's
-    result equals its single-lane :func:`simulate` bit for bit."""
-    res = _run(trace, capacity, (policy, baseline), params, generator,
+    result equals its single-lane :func:`simulate` bit for bit.  ``key``
+    seeds both lanes' coin streams alike, as in the JAX package."""
+    res = _run(trace, capacity, (policy, baseline), params, key,
                estimate_z, use_kernel, None, device, counters)
     la, lb = res[0].total_latency, res[1].total_latency
     return (lb - la) / lb

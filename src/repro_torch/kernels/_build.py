@@ -4,7 +4,8 @@ plain C interface, loaded with ctypes).
 Each ``csrc/<name>.cu`` compiles to its own ``lib<name>-<hash>.so`` under
 ``kernels/build/`` (listed in ``.gitignore``), at first use.  The hash
 covers the source and the flags, so an edited source rebuilds and a stale
-library is never loaded.  :func:`build_all` starts one ``nvcc`` per source,
+library is never loaded (the hash also covers the shared ``csrc/*.cuh``
+headers).  :func:`build_all` starts one ``nvcc`` per source,
 all at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -38,6 +39,14 @@ SIGNATURES = {
     "lane_scatter": {
         "lane_scatter": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _P],
     },
+    "flash_attention": {
+        "flash_attention": [_P] * 6 + [_INT] * 6 + [_I64] * 9
+        + [_F32, _INT, _F32, _INT, _INT, _P],
+    },
+    "decode_attention": {
+        "decode_attention": [_P] * 6 + [_INT] * 5 + [_I64] * 8
+        + [_F32, _INT, _F32, _INT, _INT, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -60,6 +69,7 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

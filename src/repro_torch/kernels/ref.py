@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes exactly what its CUDA kernel computes, in the same
-f32 operation order, so on the card the two agree bit for bit (the kernels
-are built with ``--fmad=false``).  The wrappers in
-:mod:`repro_torch.kernels.ranking_score` and
-:mod:`repro_torch.kernels.lane_scatter` run these for tensors that lie on the
-CPU; on a CUDA tensor they launch the kernel.
+The ranking and lane-scatter functions compute exactly what their CUDA
+kernels compute, in the same f32 operation order, so on the card the two
+agree bit for bit (those kernels are built with ``--fmad=false``).  The
+attention functions are the JAX package's oracles (``kernels/ref.py``):
+an f32 softmax over the whole key axis, where the kernels run an online
+softmax over key tiles, so the two differ only in the order of f32 sums.
+Every kernel wrapper runs its plain version here for tensors that lie on
+the CPU; on a CUDA tensor it launches the kernel.
 """
 from __future__ import annotations
 
@@ -90,3 +92,48 @@ def lane_scatter_add_ref(x, idx, val, valid=None):
         new = torch.where(valid, new, cur)
     x[lanes, idx] = new
     return x
+
+
+# ---------------------------------------------------------------------------
+# Attention (the oracles of csrc/flash_attention.cu, csrc/decode_attention.cu)
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30      # finite, as in the JAX kernels: never -inf - -inf
+
+
+def attention_keep(q_pos, k_pos, window: int = 0, sink: int = 0):
+    """Causal (+ sliding-window, + sink) keep-mask ``(Sq, Sk)``; a key at a
+    negative position (an empty cache slot) is never kept."""
+    keep = (k_pos[None, :] <= q_pos[:, None]) & (k_pos >= 0)[None, :]
+    if window > 0:
+        in_win = k_pos[None, :] > (q_pos[:, None] - window)
+        if sink > 0:
+            in_win |= (k_pos < sink)[None, :]
+        keep &= in_win
+    return keep
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
+                        softcap: float = 0.0, sink: int = 0):
+    """q (B,Sq,H,dh), k/v (B,Sk,KV,dh) -> (B,Sq,H,dh) in q's dtype; f32
+    logits, softcap before the mask, f32 softmax and product with v."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, dh).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dh ** -0.5
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    keep = attention_keep(q_pos, k_pos, window, sink)
+    logits = torch.where(keep[None, None, None], logits,
+                         torch.tensor(NEG_INF, dtype=torch.float32,
+                                      device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
+                         softcap: float = 0.0, sink: int = 0):
+    """Single-token decode: q (B,1,H,dh) against k/v (B,Sk,KV,dh)."""
+    return flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                               softcap=softcap, sink=sink)

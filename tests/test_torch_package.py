@@ -32,7 +32,13 @@ def test_import_pulls_in_no_jax_and_no_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.kernels.ref, repro_torch.kernels._build, "
-        "repro_torch.convert, repro_torch.data.traces\n"
+        "repro_torch.convert, repro_torch.data.traces, "
+        "repro_torch.core.prng, repro_torch.configs.registry, "
+        "repro_torch.models.transformer, repro_torch.models.attention, "
+        "repro_torch.kernels.flash_attention, "
+        "repro_torch.kernels.decode_attention, "
+        "repro_torch.training.train_loop, repro_torch.serving.scheduler, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -76,6 +82,22 @@ def test_entry_points_raise_without_a_card():
         make_trace([1.0], [0], [1.0], [0.5])
     with pytest.raises(RuntimeError):
         trace_from_arrays([1.0], [0], [1.0], [0.5], [0.5])
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    from repro_torch.configs import registry
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = registry.smoke("stablelm-1.6b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build("stablelm-1.6b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_arrays({"layers": {}}, cfg)
 
 
 def test_explicit_cpu_runs():

@@ -1,8 +1,9 @@
 """The port's simulator against the JAX package's on the same traces
 (including the pre-drawn miss latencies): counters exactly, latency totals
 to rtol=1e-5 (f32 sums of identically rounded terms, in the same Kahan
-order).  AdaptSize draws its admission coin from a torch.Generator, which
-cannot reproduce jax.random's bits, so it is held statistically only."""
+order).  AdaptSize draws its admission coin from the port's threefry
+(repro_torch.core.prng), which reproduces jax.random's bits, so it is held
+exactly as well as statistically."""
 import functools
 
 import jax
@@ -139,20 +140,17 @@ def test_just_touched_incomer_does_not_steamroll_admission():
 
 def test_latency_improvement_lanes_bitwise_match_simulate():
     """Two lanes of one state == two single-lane runs, bit for bit (the
-    AdaptSize lane too, given the same coin generator), and the ratio
+    AdaptSize lane too, given the same coin key), and the ratio
     matches JAX's eq. 17."""
     jt = jsynthetic_trace(jax.random.key(7), SPEC)
     trace = _port(jt)
     for pair in (("stoch_vacdh", "lru"), ("lru_mad", "adaptsize")):
-        lanes = _run(trace, CAP, pair, None,
-                     torch.Generator().manual_seed(3), True, None, None,
+        lanes = _run(trace, CAP, pair, None, (0, 3), True, None, None,
                      "cpu", None)
         impr = latency_improvement(trace, CAP, *pair, estimate_z=True,
-                                   generator=torch.Generator().manual_seed(3),
-                                   device="cpu")
+                                   key=(0, 3), device="cpu")
         for lane, pol in zip(lanes, pair):
-            single = simulate(trace, CAP, pol, estimate_z=True,
-                              generator=torch.Generator().manual_seed(3),
+            single = simulate(trace, CAP, pol, estimate_z=True, key=(0, 3),
                               device="cpu")
             for f in ("total_latency",) + COUNTERS:
                 assert float(getattr(lane, f)) == float(getattr(single, f))
@@ -178,6 +176,51 @@ def test_adaptsize_statistically():
     assert int(got.n_requests) == 2000
     hr = lambda r: float(r.n_hits) / 2000
     assert abs(hr(got) - hr(want)) < 0.05
+
+
+_ADAPT_SPEC = JSpec(n_objects=30, n_requests=600, rate=300.0, size_min=1.0,
+                    size_max=40.0, latency_base=0.01, latency_per_mb=1e-3,
+                    stochastic=True)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**32 - 1])
+@pytest.mark.parametrize("estimate_z", [False, True])
+def test_adaptsize_exactly_matches_jax(seed, estimate_z):
+    """The coin stream is jax.random's: counters equal, latency to RTOL,
+    for simulate and for the AdaptSize lane of latency_improvement."""
+    jt = jsynthetic_trace(jax.random.key(1), _ADAPT_SPEC)
+    jkey = jax.random.key(seed)
+    key = tuple(int(k) for k in jax.random.key_data(jkey))
+    jp, p = JPP(adapt_c=15.0), PolicyParams(adapt_c=15.0)
+    want = jsimulate(jt, 80.0, "adaptsize", params=jp, key=jkey,
+                     estimate_z=estimate_z)
+    got = simulate(_port(jt), 80.0, "adaptsize", params=p, key=key,
+                   estimate_z=estimate_z, device="cpu")
+    _assert_matches(got, want, f"seed={seed}")
+    assert 0 < int(got.n_misses) < 600 and int(got.n_hits) > 0
+    jimpr = jlatency_improvement(jt, 80.0, "adaptsize", "lru", params=jp,
+                                 key=jkey, estimate_z=estimate_z)
+    impr = latency_improvement(_port(jt), 80.0, "adaptsize", "lru",
+                               params=p, key=key, estimate_z=estimate_z,
+                               device="cpu")
+    np.testing.assert_allclose(float(impr), float(jimpr), rtol=RTOL,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 + 3, 2**32 - 1])
+def test_prng_split_and_uniform_equal_jax_bits(seed):
+    from repro_torch.core import prng
+    jkey = jax.random.key(seed)
+    key = tuple(int(k) for k in jax.random.key_data(jkey))
+    for _ in range(4):
+        jkey, jsub = jax.random.split(jkey)
+        key, sub = prng.split(key)
+        assert key == tuple(int(k) for k in jax.random.key_data(jkey))
+        assert sub == tuple(int(k) for k in jax.random.key_data(jsub))
+        want = np.asarray(jax.random.uniform(jsub), np.float32)
+        got = prng.uniform(sub)
+        assert isinstance(got, np.float32)
+        assert got.view(np.uint32) == want.view(np.uint32)
 
 
 def test_counters_report_syncs():

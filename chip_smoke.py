@@ -18,19 +18,38 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 4. the two attention kernels against their plain versions on the card over
    head widths 16/32/64/128, GQA groups 1/4/12/24, ragged Sq and Sk,
    windows of 4096 (with and without a sink) and 32, softcap 0 and 30, a
-   wrapped ring-buffer cache with empty slots, in f32 (max |diff| <= 1e-5)
-   and bf16 (at most one bf16 ulp of each output element, plus 1e-5); then
-   their times at StableLM-2-1.6B's shapes beside the plain versions and
+   wrapped ring-buffer cache with empty slots, Hymba-1.5B's shapes (25 q
+   and 5 KV heads of 64, window 1024 with a 128-token sink, a wrapped
+   1152-slot ring with empty slots), in f32 (max |diff| <= 1e-5) and bf16
+   (at most one bf16 ulp of each output element, plus 1e-5); then their
+   times at StableLM-2-1.6B's shapes beside the plain versions and
    PyTorch's ``scaled_dot_product_attention``;
 5. the LM serve path at full width: ``stablelm-1.6b`` (24 layers, d 2048,
    bf16, random weights from a seed) behind a ``ContinuousBatcher``
    (max_batch 4, 8 requests of 512-2048 prompt tokens, 32 new tokens
    each) through the kernels, the same requests through the plain
    versions, and an f32 check of prefill and teacher-forced decode logits
-   of the kernel path against the plain path.
+   of the kernel path against the plain path;
+6. the ``gla_chunk`` kernel against its plain version on the card over
+   (dk, dv) in (16, 128), (512, 512), (64, 64), (16, 32), chunks of 16,
+   64 and 256 (one and three of them), normalised or not, zero or given
+   initial state, contiguous or strided q and k, f32 and bf16, and the
+   main path's two shapes (y, S and n within atol 1e-4 + rtol 1e-3, bf16
+   y within one more bf16 ulp); then its times at xLSTM-350M's and
+   Hymba-1.5B's prefill shapes beside the plain version;
+7. ``xlstm-350m`` (24 mLSTM blocks, d 1024, bf16) at full width behind
+   the ``ContinuousBatcher`` as in phase 5, through the kernel (192
+   ``gla_chunk`` launches) and its plain version, and the f32 check;
+8. ``hymba-1.5b`` (32 blocks, d 1600, bf16) at full width by direct
+   prefill and decode calls at ``pos0 = meta + S + i`` (the batcher leaves
+   the meta tokens out of its positions, so ``serve`` refuses the
+   model): prompts of 1,000 and 2,048 tokens and 16 decode steps each,
+   through ``gla_chunk``, ``flash_attention`` and ``decode_attention``
+   and through their plain versions, and the f32 check.
 
 Each main-path run starts from zeroed launch counts and must launch every
-kernel it reaches; a run through the plain versions must launch none.
+kernel it reaches (the LM runs: exactly once a layer per prompt or per
+decoded token); a run through the plain versions must launch none.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 before it come the ``kernels`` JSON line and the card's name and power
@@ -475,6 +494,33 @@ def phase_attention() -> dict:
                                                pos, **kw),
                       f"dh={dh} Sc={s} {kw}")
                 cases += 2
+    # Hymba-1.5B's shapes (25 q heads and 5 KV heads of 64, window 1024
+    # with a 128-token sink): prefill over 128 meta + 2048 prompt tokens,
+    # and decode over a wrapped 1152-slot ring (sink slots in place, ring
+    # slots holding positions out of order) with empty slots
+    h, kv, dh, meta, win = 25, 5, 64, 128, 1024
+    s = meta + 2048
+    ring = meta + win
+    kpos = [i if i < meta else meta + (s - meta - win)
+            + ((i - meta) + 300) % win for i in range(ring)]
+    for i in range(meta + 7, ring, 97):
+        kpos[i] = -1                       # slots not written yet
+    for dt, tdt in dts.items():
+        q, k, v = (rnd((1, s, h, dh), tdt), rnd((1, s, kv, dh), tdt),
+                   rnd((1, s, kv, dh), tdt))
+        pos = ipos(range(s))
+        kw = dict(window=win, softcap=0.0, sink=meta)
+        check("flash_attention", dt, flash_attention(q, k, v, pos, pos, **kw),
+              ref.flash_attention_ref(q, k, v, pos, pos, **kw),
+              f"Hymba prefill S={s} H={h} KV={kv} {kw}")
+        qd, kc, vc = (rnd((1, 1, h, dh), tdt), rnd((1, ring, kv, dh), tdt),
+                      rnd((1, ring, kv, dh), tdt))
+        qpd, kp = ipos([s]), ipos(kpos)
+        check("decode_attention", dt,
+              decode_attention(qd, kc, vc, qpd, kp, **kw),
+              ref.decode_attention_ref(qd, kc, vc, qpd, kp, **kw),
+              f"Hymba decode ring {ring} H={h} KV={kv} {kw}")
+        cases += 2
     # StableLM-2-1.6B's shapes on the main path (bf16, B=1, 32 MHA heads of
     # 64): causal prefill at S=2048, and decode over a full cache of 2048
     # (4 caches, 67 MB, taken in turn when timed below, so each call finds
@@ -554,29 +600,110 @@ def phase_attention() -> dict:
             for name, (ms, plain, bound, lib, by) in t.items()}
 
 
-def phase_serve(launches: dict) -> None:
-    """Full-width stablelm-1.6b behind the continuous batcher, kernels
-    against plain versions; then the f32 logits check."""
+def to_f32(t):
+    """A parameter tree (dicts and lists of tensors) in f32."""
+    if isinstance(t, dict):
+        return {k: to_f32(v) for k, v in t.items()}
+    return [to_f32(v) for v in t] if isinstance(t, list) else t.float()
+
+
+def run_request(cfg, params, prompt, steps: int, feed=None):
+    """Prefill ``prompt``, then ``steps`` decode steps at
+    ``pos0 = meta + S + j`` (forward's contract), fed greedily or with the
+    tokens ``feed``; returns (last logits of every step ``[steps+1, V]``,
+    the fed tokens, prefill seconds, decode seconds), each phase ending in a
+    device sync."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import make_serve_steps
+    prefill, decode = make_serve_steps(cfg)
+    toks = torch.as_tensor(prompt[None, :], device="cuda")
+    s = cfg.meta_tokens + toks.shape[1]
+    cache = tf.init_cache(cfg, 1, s + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, {"tokens": toks})
+    outs = [logits[0, -1]]
+    fed = [int(torch.argmax(logits[0, -1]))] if feed is None else feed
+    t1 = time.perf_counter()
+    for j in range(steps):
+        tok = torch.tensor([[fed[j]]], device="cuda")
+        logits, cache = decode(params, cache, tokens=tok, pos0=s + j)
+        outs.append(logits[0, -1])
+        if feed is None:
+            fed.append(int(torch.argmax(logits[0, -1])))
+    torch.cuda.synchronize()
+    return torch.stack(outs), fed, t1 - t0, time.perf_counter() - t1
+
+
+def check_f32(phase: int, cfg, params, prompts, steps: int = 16) -> None:
+    """f32 at full width: prefill and ``steps`` teacher-forced decode
+    logits of the kernel path within 1e-3 of max |logit| of the plain
+    path."""
+    import dataclasses
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = to_f32(params)
+    worst = 0.0
+    for i, prompt in enumerate(prompts):
+        want, feed, _, _ = run_request(
+            dataclasses.replace(cfg32, use_kernel="ref"), p32, prompt, steps)
+        got, _, _, _ = run_request(
+            dataclasses.replace(cfg32, use_kernel=True), p32, prompt, steps,
+            feed)
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        log(f"phase {phase}: f32 prompt {i} ({len(prompt)} tokens): prefill "
+            f"+ {steps} teacher-forced decode logits, kernels vs plain: max "
+            f"|diff| / max |logit| = {rel:.3e}")
+        if not rel <= 1e-3 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"f32 logits of the kernel path differ from "
+                                 f"the plain path by {rel} of max |logit|")
+    log(f"phase {phase}: f32 full-width check passed (max {worst:.3e} <= "
+        f"1e-3 of max |logit|)")
+
+
+def build_model(phase: int, arch: str):
+    import torch
+    from repro_torch.launch.serve import build
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    cfg, params = build(arch)
+    torch.cuda.synchronize()
+    n = tf.n_params(params)
+    log(f"phase {phase}: {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"family {cfg.family}, vocab {cfg.vocab}, {n / 1e9:.3f} B parameters "
+        f"(cfg.n_params() {cfg.n_params() / 1e9:.3f} B), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n != cfg.n_params():
+        raise AssertionError(f"{n} parameters, the config says "
+                             f"{cfg.n_params()}")
+    return cfg, params
+
+
+def phase_serve(phase: int, arch: str, launches: dict,
+                per_prompt: tuple, per_token: tuple) -> None:
+    """``arch`` at full width behind the continuous batcher (max_batch 4,
+    8 requests of 512-2048 prompt tokens, 32 new tokens each), through the
+    kernels and through their plain versions; then the f32 logits check.
+    The kernel run must launch each kernel of ``per_prompt`` once a layer
+    per prompt and each of ``per_token`` once a layer per decoded token."""
     import dataclasses
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import build, random_prompts, serve
-    from repro_torch.models import transformer as tf
-    from repro_torch.training.train_loop import make_serve_steps
+    from repro_torch.launch.serve import random_prompts, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    cfg, params = build(SERVE_ARCH)
-    torch.cuda.synchronize()
-    n = tf.n_params(params)
-    log(f"phase 5: {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads of {cfg.d_head}, vocab {cfg.vocab}, "
-        f"{n / 1e9:.3f} B parameters ({n * 2 / 1e9:.2f} GB bf16), "
-        f"initialised in {time.perf_counter() - t0:.1f} s")
+    cfg, params = build_model(phase, arch)
     prompts = random_prompts(cfg, 8, 512, 2049)
     max_new = 32
-    log(f"phase 5: 8 requests, prompt lengths {[len(p) for p in prompts]}, "
-        f"{max_new} new tokens each, max_batch 4")
+    log(f"phase {phase}: 8 requests, prompt lengths "
+        f"{[len(p) for p in prompts]}, {max_new} new tokens each, "
+        f"max_batch 4")
+    want = {k: cfg.n_layers * len(prompts) for k in per_prompt}
+    want.update({k: cfg.n_layers * len(prompts) * (max_new - 1)
+                 for k in per_token})
     runs = {}
     for mode in (True, "ref"):
         c = dataclasses.replace(cfg, use_kernel=mode)
@@ -585,73 +712,222 @@ def phase_serve(launches: dict) -> None:
         r = serve(c, params, prompts, max_new)
         lc = launch_counts()
         runs[mode] = r
-        log(f"phase 5: serve(use_kernel={mode!r}): {r['done']} requests, "
-            f"prefill {r['prefill_tokens']} tokens in {r['prefill_s']:.3f} s "
+        log(f"phase {phase}: serve(use_kernel={mode!r}): {r['done']} "
+            f"requests, prefill {r['prefill_tokens']} tokens in "
+            f"{r['prefill_s']:.3f} s "
             f"({r['prefill_tokens'] / r['prefill_s']:.1f} tok/s), decode "
             f"{r['decode_tokens']} tokens in {r['decode_s']:.3f} s "
             f"({r['decode_tokens'] / r['decode_s']:.1f} tok/s), wall "
-            f"{r['wall_s']:.2f} s; launches flash_attention "
-            f"{lc['flash_attention']}, decode_attention "
-            f"{lc['decode_attention']}")
+            f"{r['wall_s']:.2f} s; launches "
+            f"{ {k: lc[k] for k in want} }")
         if r["done"] != 8 or any(len(q.out) != max_new
                                  for q in r["requests"]):
             raise AssertionError(f"use_kernel={mode!r}: not every request "
                                  f"completed {max_new} tokens")
         if mode is True:
-            for kname in ("flash_attention", "decode_attention"):
-                if lc[kname] <= 0:
-                    raise AssertionError(f"the serve path did not launch "
-                                         f"{kname}")
+            for k, n in want.items():
+                if lc[k] != n:
+                    raise AssertionError(f"the serve path launched {k} "
+                                         f"{lc[k]} times, not {n}")
             add_launches(launches, lc)
         elif any(lc.values()):
             raise AssertionError(f"the plain serve run launched {lc}")
     same = sum(a == b for qa, qb in zip(runs[True]["requests"],
                                         runs["ref"]["requests"])
                for a, b in zip(qa.out, qb.out))
-    log(f"phase 5: greedy tokens equal to the plain run's: {same} of "
+    log(f"phase {phase}: greedy tokens equal to the plain run's: {same} of "
         f"{8 * max_new} ({same / (8 * max_new):.4f})")
+    check_f32(phase, cfg, params, prompts[:2])
 
-    # --- f32 at full width: kernel path against plain path ----------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    def f32(t):
-        if isinstance(t, dict):
-            return {k: f32(v) for k, v in t.items()}
-        return [f32(v) for v in t] if isinstance(t, list) else t.float()
 
-    p32 = f32(params)
-    del params
-    worst = 0.0
+# --- phase 6: the gla_chunk kernel ---------------------------------------------
+def gla_inputs(g, b, s, h, dk, dv, dt, init: bool, strided: bool = False):
+    """GLA inputs on the card: q, k, v in ``dt``, log-sigmoid gates in f32,
+    and an initial (S0, n0) or None.  ``strided``: q and k are the two
+    halves of one (B,S,H,2dk) tensor, as Mamba's C and B are."""
+    import torch
+    import torch.nn.functional as F
+    rn = lambda *sh: torch.randn(sh, generator=g, device="cuda")
+    if strided:
+        qk = rn(b, s, h, 2 * dk)
+        qk[..., dk:] *= 0.3
+        q, k = torch.chunk(qk.to(dt), 2, dim=-1)
+    else:
+        q, k = rn(b, s, h, dk).to(dt), (rn(b, s, h, dk) * 0.3).to(dt)
+    v = rn(b, s, h, dv).to(dt)
+    log_f, log_i = F.logsigmoid(rn(b, s, h) - 1.0), F.logsigmoid(rn(b, s, h))
+    st = (rn(b, h, dk, dv) * 0.1, rn(b, h, dk).abs()) if init else None
+    return (q, k, v, log_f, log_i), st
+
+
+def gla_bound_ms(b, s, h, dk, dv, chunk, elt):
+    """The least time for one gla_chunk call: the larger of its bytes (q,
+    k, v in, y out in the model dtype; f32 gates in, f32 state and
+    normaliser out) at 3.35 TB/s and its operations on and below each
+    chunk's diagonal (scores, A.v, the decayed state read, the state carry
+    and the normaliser's two dot products) at the bf16 tensor rate, as
+    row 4 of the kernel table counts attention."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    flops = b * h * nc * (2 * tri * dk + 2 * tri * dv
+                          + 2 * 2 * chunk * dk * dv + 2 * 2 * chunk * dk)
+    nbytes = (b * s * h * (2 * dk + 2 * dv) * elt + b * s * h * 2 * 4
+              + b * h * (dk * dv + dk) * 4)
+    by_ops = flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S
+    return (max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "operations" if by_ops else "bytes", flops, nbytes)
+
+
+def within(got, want, bf16: bool) -> float:
+    """Largest ``|got - want| / (atol + rtol |want| [+ 1 bf16 ulp])`` with
+    JAX's kernel-vs-chunkwise bound ``atol 1e-4, rtol 1e-3``
+    (tests/test_kernels.py); <= 1 passes."""
+    import torch
+    g, w = got.float(), want.float()
+    lim = 1e-4 + 1e-3 * w.abs()
+    if bf16:
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+        _, e = torch.frexp(mag)
+        lim = lim + torch.ldexp(torch.ones_like(mag), e - 8)
+    return float(((g - w).abs() / lim).max())
+
+
+def phase_gla() -> dict:
+    """gla_chunk against its plain version on the card over the sweep;
+    timings at xLSTM-350M's and Hymba-1.5B's prefill shapes."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gla_chunk import gla_chunk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {"err": 0.0, "f32": 0.0, "bf16": 0.0}
+
+    def check(args, st, chunk, normalize, dt, what):
+        y, (S, n) = gla_chunk(*args, chunk=chunk, normalize=normalize,
+                              init_state=st)
+        ry, (rS, rn) = ref.gla_chunk_plain(*args, chunk=chunk,
+                                           normalize=normalize,
+                                           init_state=st)
+        r = max(within(y, ry, dt == "bf16"), within(S, rS, False),
+                within(n, rn, False))
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, S, n))
+        if not (r <= 1.0 and finite):
+            raise AssertionError(f"gla_chunk != plain ({what}): {r} of the "
+                                 f"bound, finite {finite}")
+        worst[dt] = max(worst[dt], r)
+        worst["err"] = max(worst["err"], *(float((a.float() - b).abs().max())
+                                          for a, b in ((y, ry.float()),
+                                                       (S, rS), (n, rn))))
+
+    cases = 0
+    for dt, tdt in dts.items():
+        for dk, dv in ((16, 128), (512, 512), (64, 64), (16, 32)):
+            b, h = (1, 2) if dk == 512 else (2, 3)
+            for chunk in (16, 64, 256):
+                for n_chunks in (1, 3):
+                    for normalize in (True, False):
+                        for init in (False, True):
+                            s = chunk * n_chunks
+                            args, st = gla_inputs(g, b, s, h, dk, dv, tdt,
+                                                  init, strided=cases % 2)
+                            check(args, st, chunk, normalize, dt,
+                                  f"{dt} dk={dk} dv={dv} B={b} H={h} S={s} "
+                                  f"chunk={chunk} normalize={normalize} "
+                                  f"init={init}")
+                            cases += 1
+    # the main path's shapes: an xLSTM layer's 2048-token prompt (4 heads,
+    # dk = dv = 512, normalised) and a Hymba layer's 128 + 2048 tokens
+    # padded to 2304 (25 heads, dk 16, dv 128, not normalised), bf16
+    shapes = {"xlstm-350m": (1, 2048, 4, 512, 512, True),
+              "hymba-1.5b": (1, 2304, 25, 16, 128, False)}
+    main_args = {}
+    for name, (b, s, h, dk, dv, normalize) in shapes.items():
+        args, _ = gla_inputs(g, b, s, h, dk, dv, torch.bfloat16, False)
+        check(args, None, 256, normalize, "bf16", f"{name} prefill shape")
+        main_args[name] = (args, normalize)
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 6: gla_chunk == plain within tolerance over {cases} cases "
+        f"(f32: atol 1e-4 + rtol 1e-3, worst {worst['f32']:.3f} of it; "
+        f"bf16 y: + 1 ulp, worst {worst['bf16']:.3f}); max |diff| "
+        f"{worst['err']:.3e}")
+
+    out = {}
+    for name, (b, s, h, dk, dv, _) in shapes.items():
+        args, normalize = main_args[name]
+        bound, by, flops, nbytes = gla_bound_ms(b, s, h, dk, dv, 256, 2)
+        ms = time_ms(lambda: gla_chunk(*args, normalize=normalize), 20)
+        plain = time_ms(lambda: ref.gla_chunk_plain(*args,
+                                                    normalize=normalize), 10)
+        log(f"phase 6: gla_chunk at {name}'s prefill shape (B={b}, S={s}, "
+            f"H={h}, dk={dk}, dv={dv}, chunk 256, bf16): {ms * 1e3:.2f} us, "
+            f"plain {plain * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}: "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{(b * h) * ((dv + 31) // 32)} blocks on "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+            f"SMs")
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=None, max_abs_err=worst["err"])
+    return out
+
+
+# --- phase 8: Hymba-1.5B by direct prefill and decode calls ------------------
+def phase_hymba(launches: dict) -> None:
+    """Hymba-1.5B at full width: two prompts (~1,000 and 2,048 tokens),
+    prefill then 16 greedy decode steps each at pos0 = meta + S + j,
+    through the kernels and their plain versions; then the f32 check."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = build_model(8, "hymba-1.5b")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (1000, 2048)]
     steps = 16
-    for i, prompt in enumerate(prompts[:2]):
-        toks = torch.as_tensor(prompt[None, :], device="cuda")
-        seq = {}
-        for mode in ("ref", True):
-            c = dataclasses.replace(cfg32, use_kernel=mode)
-            prefill, decode = make_serve_steps(c)
-            cache = tf.init_cache(c, 1, toks.shape[1] + steps + 1)
-            logits, cache = prefill(p32, cache, {"tokens": toks})
-            outs = [logits[0, -1]]
-            feed = [int(torch.argmax(logits[0, -1]))] if mode == "ref" \
-                else seq["ref"][1]
-            for j in range(steps):
-                tok = torch.tensor([[feed[j]]], device="cuda")
-                logits, cache = decode(p32, cache, tokens=tok,
-                                       pos0=toks.shape[1] + j)
-                outs.append(logits[0, -1])
-                if mode == "ref":
-                    feed.append(int(torch.argmax(logits[0, -1])))
-            seq[mode] = (torch.stack(outs), feed)
-        want, got = seq["ref"][0], seq[True][0]
-        rel = float((got - want).abs().max() / want.abs().max())
-        worst = max(worst, rel)
-        log(f"phase 5: f32 prompt {i} ({toks.shape[1]} tokens): prefill + "
-            f"{steps} teacher-forced decode logits, kernels vs plain: max "
-            f"|diff| / max |logit| = {rel:.3e}")
-        if not rel <= 1e-3 or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"f32 logits of the kernel path differ from "
-                                 f"the plain path by {rel} of max |logit|")
-    log(f"phase 5: f32 full-width check passed (max {worst:.3e} <= 1e-3 of "
-        f"max |logit|)")
+    ring = cfg.meta_tokens + cfg.sliding_window
+    log(f"phase 8: prompts of {[len(p) for p in prompts]} tokens + "
+        f"{cfg.meta_tokens} meta tokens, {steps} decode steps each, a "
+        f"{ring}-slot ring (the second prompt packs it, its decode wraps)")
+    n_l = cfg.n_layers
+    want = {"gla_chunk": n_l * len(prompts),
+            "flash_attention": n_l * len(prompts),
+            "decode_attention": n_l * len(prompts) * steps}
+    outs = {}
+    for mode in (True, "ref"):
+        c = dataclasses.replace(cfg, use_kernel=mode)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        res = [run_request(c, params, p, steps) for p in prompts]
+        lc = launch_counts()
+        outs[mode] = res
+        pre_s, dec_s = sum(r[2] for r in res), sum(r[3] for r in res)
+        n_pre = sum(cfg.meta_tokens + len(p) for p in prompts)
+        log(f"phase 8: use_kernel={mode!r}: prefill {n_pre} tokens (meta "
+            f"included) in {pre_s:.3f} s ({n_pre / pre_s:.1f} tok/s), decode "
+            f"{steps * len(prompts)} tokens in {dec_s:.3f} s "
+            f"({steps * len(prompts) / dec_s:.1f} tok/s); launches "
+            f"{ {k: lc[k] for k in want} }")
+        for logits, *_ in res:
+            if not bool(torch.isfinite(logits).all()) or \
+                    logits.shape != (steps + 1, cfg.vocab):
+                raise AssertionError(f"use_kernel={mode!r}: logits "
+                                     f"{tuple(logits.shape)} not finite")
+        if mode is True:
+            for k, n in want.items():
+                if lc[k] != n:
+                    raise AssertionError(f"the Hymba path launched {k} "
+                                         f"{lc[k]} times, not {n}")
+            add_launches(launches, lc)
+        elif any(lc.values()):
+            raise AssertionError(f"the plain Hymba run launched {lc}")
+    same = sum(a == b for rk, rr in zip(outs[True], outs["ref"])
+               for a, b in zip(rk[1], rr[1]))
+    log(f"phase 8: greedy tokens equal to the plain run's: {same} of "
+        f"{len(prompts) * (steps + 1)}")
+    check_f32(8, cfg, params, prompts)
 
 
 def main() -> int:
@@ -677,8 +953,14 @@ def main() -> int:
     launches = {}
     phase_paper(launches)
     phase_deploy(args.requests, launches)
-    phase_serve(launches)
-    log(f"launches over the main-path runs of phases 2-3 and 5: {launches}")
+    phase_serve(5, SERVE_ARCH, launches, ("flash_attention",),
+                ("decode_attention",))
+    gla = phase_gla()
+    timings["gla_chunk"] = gla["xlstm-350m"]
+    phase_serve(7, "xlstm-350m", launches, ("gla_chunk",), ())
+    phase_hymba(launches)
+    log(f"launches over the main-path runs of phases 2-3, 5, 7 and 8: "
+        f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 
     meta = {
@@ -692,6 +974,8 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:79"),
         "decode_attention": ("kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:72"),
+        "gla_chunk": ("kernels/csrc/gla_chunk.cu",
+                      "src/repro/kernels/gla_chunk.py:81"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

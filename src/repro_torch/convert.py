@@ -17,6 +17,7 @@ from .core.distributions import make_distribution
 from .core.ranking import PolicyParams
 from .core.state import ObjStats
 from .core.trace import Trace
+from .models.ssm import F32_LEAVES
 
 
 def trace_from_arrays(times, objs, sizes, z_mean, z_draw,
@@ -68,20 +69,24 @@ def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
 
     The stacked ``[L, ...]`` leaves of ``tree["layers"]`` are split into one
     dict per layer.  Weights keep their ``(d_in, d_out)`` layout, so no
-    transpose is needed.  Every leaf is cast to ``cfg.torch_dtype`` via
-    f32 (exact for bf16 and f32 leaves)."""
+    transpose is needed.  Every leaf takes its JAX dtype: the leaves the JAX
+    package creates in f32 whatever the model's dtype
+    (:data:`repro_torch.models.ssm.F32_LEAVES`) stay f32, every other leaf
+    is cast to ``cfg.torch_dtype``, both via f32 (exact for bf16 and f32
+    leaves)."""
     dev = resolve_device(device)
 
-    def leaf(x):
-        return torch.as_tensor(np.array(x, np.float32),
-                               device=dev).to(cfg.torch_dtype)
+    def leaf(x, name):
+        dt = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
+        return torch.as_tensor(np.array(x, np.float32), device=dev).to(dt)
 
-    def tree_map(f, t):
-        return ({k: tree_map(f, v) for k, v in t.items()}
-                if isinstance(t, dict) else f(t))
+    def tree_map(f, t, name=None):
+        return ({k: tree_map(f, v, k) for k, v in t.items()}
+                if isinstance(t, dict) else f(t, name))
 
-    out = {k: tree_map(leaf, v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [tree_map(lambda x, i=i: leaf(np.asarray(x)[i]),
-                              tree["layers"])
-                     for i in range(cfg.n_layers)]
+    out = {k: tree_map(leaf, v, k) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [
+        tree_map(lambda x, name, i=i: leaf(np.asarray(x)[i], name),
+                 tree["layers"])
+        for i in range(cfg.n_layers)]
     return out

@@ -4,15 +4,18 @@
 - :mod:`lane_scatter`     per-lane point writes into ``[L, N]`` state (``csrc/lane_scatter.cu``)
 - :mod:`flash_attention`  prefill attention (``csrc/flash_attention.cu``)
 - :mod:`decode_attention` one-token attention over a KV cache (``csrc/decode_attention.cu``)
+- :mod:`gla_chunk`        chunked gated linear attention for mLSTM / Mamba heads (``csrc/gla_chunk.cu``)
 - :mod:`ref`              the plain PyTorch versions (CPU path, on-card oracle)
 - :mod:`_build`           nvcc build + ctypes loading, at first use
 """
-from . import decode_attention, flash_attention, lane_scatter, ranking_score
+from . import (decode_attention, flash_attention, gla_chunk, lane_scatter,
+               ranking_score)
 from .lane_scatter import lane_scatter_add, lane_scatter_set
 from .ranking_score import ranking_scores, ranking_victim_order
 
 _COUNTERS = (ranking_score.launches, lane_scatter.launches,
-             flash_attention.launches, decode_attention.launches)
+             flash_attention.launches, decode_attention.launches,
+             gla_chunk.launches)
 
 
 def launch_counts() -> dict[str, int]:

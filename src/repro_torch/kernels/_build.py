@@ -47,6 +47,10 @@ SIGNATURES = {
         "decode_attention": [_P] * 6 + [_INT] * 5 + [_I64] * 8
         + [_F32, _INT, _F32, _INT, _INT, _P],
     },
+    "gla_chunk": {
+        "gla_chunk": [_P] * 10 + [_INT] * 6 + [_I64] * 9
+        + [_F32, _INT, _INT, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

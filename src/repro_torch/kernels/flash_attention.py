@@ -26,6 +26,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = {"flash_attention": 0}
 
 
+def check_rows_16b(name: str, t) -> None:
+    """The kernels load rows of ``t`` (a (B, S, heads, d) tensor) 16 bytes
+    at a time: its last axis must be contiguous and every row must start
+    on a 16-byte boundary."""
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}'s last axis must be contiguous")
+    offs = [t.stride(i) * t.element_size() for i in range(3)
+            if t.shape[i] > 1]
+    if t.data_ptr() % 16 or any(o % 16 for o in offs):
+        raise ValueError(f"{name}'s rows must start on 16-byte boundaries")
+
+
 def check_attention_args(q, k, v, q_pos, k_pos):
     """Shapes, dtypes and devices shared by both attention kernels; returns
     the device."""
@@ -52,14 +64,7 @@ def check_attention_args(q, k, v, q_pos, k_pos):
         if dh not in HEAD_DIMS:
             raise ValueError(f"d_head {dh} is not one of {HEAD_DIMS}")
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.stride(3) != 1:
-                raise ValueError(f"{name}'s last axis must be contiguous")
-            # the kernels load rows 16 bytes at a time
-            offs = [t.stride(i) * t.element_size() for i in range(3)
-                    if t.shape[i] > 1]
-            if t.data_ptr() % 16 or any(o % 16 for o in offs):
-                raise ValueError(f"{name}'s rows must start on 16-byte "
-                                 f"boundaries")
+            check_rows_16b(name, t)
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -6,7 +6,9 @@ agree bit for bit (those kernels are built with ``--fmad=false``).  The
 attention functions are the JAX package's oracles (``kernels/ref.py``):
 an f32 softmax over the whole key axis, where the kernels run an online
 softmax over key tiles, so the two differ only in the order of f32 sums.
-Every kernel wrapper runs its plain version here for tensors that lie on
+``gla_chunk_plain`` is the chunkwise form of the GLA kernel's arithmetic
+(the kernel sums the same f32 products in another order);
+``gla_chunk_ref`` is the sequential oracle, for tests.  Every kernel wrapper runs its plain version here for tensors that lie on
 the CPU; on a CUDA tensor it launches the kernel.
 """
 from __future__ import annotations
@@ -137,3 +139,92 @@ def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
     """Single-token decode: q (B,1,H,dh) against k/v (B,Sk,KV,dh)."""
     return flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                softcap=softcap, sink=sink)
+
+
+# ---------------------------------------------------------------------------
+# Chunked gated linear attention (the oracles of csrc/gla_chunk.cu)
+# ---------------------------------------------------------------------------
+def gla_chunk_ref(q, k, v, log_f, log_i, *, normalize: bool = True):
+    """Sequential-recurrence oracle of chunked GLA (the JAX package's
+    ``gla_chunk_ref``), one time step at a time; for tests.
+
+    q,k (B,S,H,dk), v (B,S,H,dv), gates (B,S,H) log-space.  Returns
+    (y (B,S,H,dv) in q's dtype, (S_state (B,H,dk,dv), n (B,H,dk)) in f32)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    scale = dk ** -0.5
+    S = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
+    ys = []
+    for t in range(s):
+        f = torch.exp(log_f[:, t].float())[..., None]            # (B,H,1)
+        i = torch.exp(log_i[:, t].float())[..., None]
+        kf = k[:, t].float()
+        S = f[..., None] * S + (i * kf)[..., None] * v[:, t].float()[..., None, :]
+        n = f * n + i * kf
+        qf = q[:, t].float() * scale
+        y = torch.einsum("bhk,bhkv->bhv", qf, S)
+        if normalize:
+            den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", qf, n)),
+                              min=1.0)
+            y = y / den[..., None]
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(q.dtype), (S, n)
+
+
+def gla_chunk_plain(q, k, v, log_f, log_i, *, chunk: int = 256,
+                    normalize: bool = True, init_state=None):
+    """The plain version of the ``gla_chunk`` kernel: the Pallas kernel's
+    chunkwise arithmetic (``src/repro/kernels/gla_chunk.py``), one chunk
+    at a time over every (batch, head) at once.
+
+    Per chunk of L positions, with ``bc`` the within-chunk inclusive
+    cumulative log decay: the decayed read of the carried state
+    ``(q * exp(bc)) @ S``; the masked L x L scores
+    ``A_ts = (q_t . k_s) exp(bc_t - bc_s + li_s)`` for s <= t (``where``
+    discards the exp overflows above the diagonal); the normaliser
+    ``max(|sum_s A_ts + q_t . n|, 1)``; the state carry.  q is scaled by
+    dk^-1/2; everything runs in f32.  S must be a multiple of the chunk
+    (after ``chunk = min(chunk, S)``).  ``init_state`` is ``(S0 (B,H,dk,dv),
+    n0 (B,H,dk))``, zeros when None.  Returns (y (B,S,H,dv) in q's dtype,
+    (S_state, n) in f32)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    heads = lambda x: x.float().permute(0, 2, 1, 3)              # (B,H,S,d)
+    qf, kf, vf = heads(q) * dk ** -0.5, heads(k), heads(v)
+    li = log_i.float().permute(0, 2, 1)                          # (B,H,S)
+    bc = torch.cumsum(log_f.float().permute(0, 2, 1).reshape(
+        b, h, nc, chunk), dim=-1).reshape(b, h, s)
+    if init_state is None:
+        S = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+        n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
+    else:
+        S, n = (x.float() for x in init_state)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qc, kc, vc, bx, lx = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl], \
+            bc[:, :, sl], li[:, :, sl]
+        qd = qc * torch.exp(bx)[..., None]
+        y_inter = qd @ S
+        n_inter = (qd @ n[..., None])[..., 0]
+        gpos = bx[..., :, None] - bx[..., None, :] + lx[..., None, :]
+        gmat = torch.where(tri, torch.exp(gpos), 0.0)
+        A = (qc @ kc.transpose(-1, -2)) * gmat
+        y = A @ vc + y_inter
+        if normalize:
+            den = torch.clamp(torch.abs(A.sum(-1) + n_inter), min=1.0)
+            y = y / den[..., None]
+        ys.append(y)
+        b_end = bx[..., -1]
+        kw = kc * torch.exp(b_end[..., None] - bx + lx)[..., None]
+        S = torch.exp(b_end)[..., None, None] * S + kw.transpose(-1, -2) @ vc
+        n = torch.exp(b_end)[..., None] * n + kw.sum(-2)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(q.dtype)
+    return y, (S, n)

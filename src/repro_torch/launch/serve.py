@@ -1,10 +1,17 @@
-"""Serving entry point of the port: continuous batching over a dense-block
-model with random weights.
+"""Serving entry point of the port: continuous batching over a model with
+random weights (the dense-block families and xLSTM).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --device cpu                       # tiny, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
                                                    # full width, on the card
+
+A config with meta tokens (Hymba) is refused: the batcher, like the JAX
+package's, decodes at the prompt's length and leaves out the meta-token
+offset that ``forward`` counts in ``pos0``; drive such a model through
+``make_serve_steps`` at ``pos0 = meta + S + i`` instead.
 
 Without ``--device`` it runs on the card and raises if there is none.
 Prompts of 4-15 tokens come from ``numpy.random.default_rng(0)``, as in
@@ -51,6 +58,12 @@ def serve(cfg, params, prompts, max_new: int, *, device=None) -> dict:
         raise ValueError(f"{cfg.name} has {cfg.out_heads} codebook heads: "
                          f"the scheduler's greedy argmax feeds back one "
                          f"token id, which only a single head defines")
+    if cfg.meta_tokens:
+        raise ValueError(f"{cfg.name} prepends {cfg.meta_tokens} meta "
+                         f"tokens: the batcher decodes at the prompt's "
+                         f"length without that offset (and sizes its cache "
+                         f"without it), so its logits would be wrong; call "
+                         f"the serve steps with pos0 = meta + S + i")
     dev = resolve_device(device)
     prefill, decode = make_serve_steps(cfg)
     spent = {"prefill": 0.0, "decode": 0.0}

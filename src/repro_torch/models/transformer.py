@@ -1,19 +1,29 @@
-"""Decoder model for the dense-block families (``dense``, ``vlm``, ``audio``).
+"""Decoder model for the ``dense``, ``vlm``, ``audio``, ``ssm`` and
+``hybrid`` families.
 
-The counterpart of the JAX package's ``models/transformer.py``: pre-norm
-attention + MLP blocks; vlm/audio take precomputed frontend embeddings
-(``embeds``) in place of tokens, and ``out_heads > 1`` (MusicGen) splits
-the LM head into parallel codebook heads.  Three modes share one code path:
+The counterpart of the JAX package's ``models/transformer.py``:
+
+  dense / vlm / audio - pre-norm attention + MLP blocks (vlm/audio take
+      precomputed frontend embeddings, ``embeds``, and ``out_heads > 1``
+      (MusicGen) splits the LM head into parallel codebook heads);
+  ssm    - xLSTM mLSTM blocks (self-contained mixers, d_ff = 0);
+  hybrid - Hymba: parallel attention + Mamba heads per block, mixed as
+      ``x + b_attn * attn + b_mamba * mamba``, and meta tokens prepended
+      to every prompt.
+
+Three modes share one code path:
 
   train   - full sequence, logits at every position (no backward yet);
   prefill - full sequence, last-token logits + the serving cache;
-  decode  - one token + cache (KV ring buffer), at absolute ``pos0``.
+  decode  - one token + cache (KV ring buffer and recurrent state), at
+            absolute ``pos0`` (which counts the meta tokens).
 
 Parameters are plain dicts; ``params["layers"]`` is a list of per-layer
 dicts, walked by a Python loop (the JAX model's ``lax.scan``, ``remat`` and
 sharding hints have no counterpart on one card).  The cache is a list of
-per-layer dicts, updated in place.  The ``moe``, ``ssm`` and ``hybrid``
-families are not ported yet and raise ``NotImplementedError``.
+per-layer dicts: its KV tensors are updated in place, its recurrent state
+is replaced by each call's result.  The ``moe`` family is not ported yet
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,16 +33,17 @@ from .._device import resolve_device
 from ..configs.base import ModelConfig
 from .attention import attn_apply, init_attn, init_kv_cache
 from .layers import init_dense, init_embed, mlp_apply, mlp_init, rms_norm
+from .ssm import (init_gla_state, init_mamba, init_mlstm, mamba_apply,
+                  mlstm_apply)
 
-DENSE_FAMILIES = ("dense", "vlm", "audio")
+FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"has the dense-block families {DENSE_FAMILIES}; MoE and the "
-            f"xLSTM/Hymba mixers are ROADMAP queue 1, item 11")
+            f"has the families {FAMILIES}; MoE is ROADMAP queue 1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -40,12 +51,19 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def _init_layer(g: torch.Generator, cfg: ModelConfig) -> dict:
     dt, d = cfg.torch_dtype, cfg.d_model
-    return {
-        "ln1": torch.ones((d,), dtype=dt, device=g.device),
-        "attn": init_attn(g, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt),
-        "ln2": torch.ones((d,), dtype=dt, device=g.device),
-        "mlp": mlp_init(g, d, cfg.d_ff, cfg.mlp_act, dt),
-    }
+    p = {"ln1": torch.ones((d,), dtype=dt, device=g.device)}
+    if cfg.family == "ssm":
+        p["mlstm"] = init_mlstm(g, d, cfg.n_heads, cfg.ssm_proj, dtype=dt)
+        return p
+    p["attn"] = init_attn(g, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt)
+    p["ln2"] = torch.ones((d,), dtype=dt, device=g.device)
+    p["mlp"] = mlp_init(g, d, cfg.d_ff, cfg.mlp_act, dt)
+    if cfg.family == "hybrid":
+        p["mamba"] = init_mamba(g, d, int(d * cfg.ssm_proj), cfg.ssm_heads,
+                                cfg.ssm_state, dtype=dt)
+        p["b_attn"] = torch.ones((), dtype=torch.float32, device=g.device)
+        p["b_mamba"] = torch.ones((), dtype=torch.float32, device=g.device)
+    return p
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -83,23 +101,62 @@ def n_params(params: dict) -> int:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device=None) -> list:
-    """Serving cache sized for ``capacity`` total positions (incl. meta):
-    one ring-buffer KV dict per layer, on ``device`` (None: the card)."""
+    """Serving cache sized for ``capacity`` total positions (incl. meta),
+    one dict per layer on ``device`` (None: the card): a ring-buffer KV
+    cache under ``"attn"`` (not for ``ssm``) and, for ``ssm``/``hybrid``,
+    the f32 recurrent state and the conv tail under ``"ssm"``."""
     check_family(cfg)
     dev = resolve_device(device)
     sc = capacity
     if cfg.sliding_window:
         sc = min(capacity, cfg.meta_tokens + cfg.sliding_window)
-    return [{"attn": init_kv_cache(batch, sc, cfg.n_kv_heads, cfg.d_head,
-                                   cfg.kv_torch_dtype, dev)}
-            for _ in range(cfg.n_layers)]
+    di = int(cfg.d_model * cfg.ssm_proj)
+    gla = None                  # (heads, dk, dv) of the recurrent state
+    if cfg.family == "ssm":
+        gla = (cfg.n_heads, di // cfg.n_heads, di // cfg.n_heads)
+    elif cfg.family == "hybrid":
+        gla = (cfg.ssm_heads, cfg.ssm_state, di // cfg.ssm_heads)
+
+    def per_layer():
+        c = {}
+        if cfg.family != "ssm":
+            c["attn"] = init_kv_cache(batch, sc, cfg.n_kv_heads, cfg.d_head,
+                                      cfg.kv_torch_dtype, dev)
+        if gla is not None:
+            s, n = init_gla_state(batch, *gla, dev)
+            c["ssm"] = {"S": s, "n": n,
+                        "conv": torch.zeros((batch, 3, di),
+                                            dtype=cfg.torch_dtype,
+                                            device=dev)}
+        return c
+
+    return [per_layer() for _ in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
 # One block
 # ---------------------------------------------------------------------------
-def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None):
+def _recurrent(cache: dict | None, mode: str):
+    """The carried (state, conv tail) of a recurrent mixer: only in decode,
+    as the JAX model does (a prefill starts from zeros)."""
+    if cache is None or mode != "decode":
+        return None, None
+    return (cache["ssm"]["S"], cache["ssm"]["n"]), cache["ssm"]["conv"]
+
+
+def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
+           mode: str):
     h = rms_norm(x, p["ln1"])
+    new_cache = None if cache is None else {}
+    if cfg.family == "ssm":
+        state, tail = _recurrent(cache, mode)
+        out, (state, tail) = mlstm_apply(
+            p["mlstm"], h, n_heads=cfg.n_heads, state=state, conv_tail=tail,
+            chunk=cfg.gla_chunk, use_kernel=cfg.use_kernel)
+        if cache is not None:
+            new_cache["ssm"] = {"S": state[0], "n": state[1], "conv": tail}
+        return x + out, new_cache
+
     attn_out, attn_cache = attn_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         d_head=cfg.d_head, pos=pos, theta=cfg.rope_theta,
@@ -107,9 +164,22 @@ def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None):
         sink=cfg.meta_tokens,
         cache=None if cache is None else cache["attn"],
         use_kernel=cfg.use_kernel)
-    x = x + attn_out
+    if cache is not None:
+        new_cache["attn"] = attn_cache
+    if cfg.family == "hybrid":
+        state, tail = _recurrent(cache, mode)
+        m_out, (state, tail) = mamba_apply(
+            p["mamba"], h, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+            state=state, conv_tail=tail, chunk=cfg.gla_chunk,
+            use_kernel=cfg.use_kernel)
+        x = (x + p["b_attn"].to(x.dtype) * attn_out
+             + p["b_mamba"].to(x.dtype) * m_out)
+        if cache is not None:
+            new_cache["ssm"] = {"S": state[0], "n": state[1], "conv": tail}
+    else:
+        x = x + attn_out
     x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg.mlp_act)
-    return x, (None if cache is None else {"attn": attn_cache})
+    return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +191,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     tokens (B,S) integer ids or embeds (B,S,d) (vlm/audio stubs), on the
     parameters' device; decode: S == 1 and ``pos0`` is the absolute
-    position of the incoming token.  The aux loss is 0 (no MoE here).
+    position of the incoming token, including the meta-token offset for
+    hybrid archs.  The aux loss is 0 (no MoE here).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -141,7 +212,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
            else torch.arange(s, dtype=torch.int32, device=x.device))
     new_cache = None if cache is None else []
     for li, p_l in enumerate(params["layers"]):
-        x, c = _block(cfg, p_l, x, pos, None if cache is None else cache[li])
+        c_l = None if cache is None else cache[li]
+        x, c = _block(cfg, p_l, x, pos, c_l, mode)
         if cache is not None:
             new_cache.append(c)
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's LM serve path spends its time on the card.
 
-    PYTHONPATH=src python3 -m repro_torch.profile_serve
+    PYTHONPATH=src python3 -m repro_torch.profile_serve [--arch xlstm-350m]
 
-Builds StableLM-2-1.6B (``stablelm-1.6b``) at full width with random
-weights (bf16), then for one request of 2048 prompt tokens times its
+Builds ``--arch`` (default StableLM-2-1.6B, ``stablelm-1.6b``) at full
+width with random weights (bf16), then for one request of 2048 prompt
+tokens times its
 prefill and 32 decode steps (host clock, each step ending in the
 scheduler's host argmax) and profiles the same work again with
 ``torch.profiler``.  Prints one JSON
@@ -13,20 +14,26 @@ line per phase (prefill, decode) with:
 - wall seconds, tokens per second, and per-step milliseconds;
 - device busy seconds (summed CUDA kernel and copy time of the profiled
   run) and the idle share ``1 - busy / wall`` against the unprofiled wall;
-- the attention kernel's share of the device time, and the top device
-  operations by time.
+- the share of the device time in the port's own kernels (attention and
+  GLA), and the top device operations by time.
+
+A config with meta tokens (Hymba) is prefilled and decoded at
+``pos0 = meta + S + i``, as ``forward`` counts positions.
 
 Prints the card's name and power limit (as nvidia-smi gives them) first.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
 
-ARCH, PROMPT, DECODE = "stablelm-1.6b", 2048, 32
+PROMPT, DECODE = 2048, 32
+# the port's kernels, by their CUDA function names
+KERNELS = ("flash_kernel", "decode_kernel", "gla_kernel")
 
 
 def _run(params, cfg, tokens, n_decode):
@@ -36,7 +43,8 @@ def _run(params, cfg, tokens, n_decode):
     from .models import transformer as tf
     from .training.train_loop import make_serve_steps
     prefill, decode = make_serve_steps(cfg)
-    cache = tf.init_cache(cfg, 1, tokens.shape[1] + n_decode + 1)
+    s = cfg.meta_tokens + tokens.shape[1]
+    cache = tf.init_cache(cfg, 1, s + n_decode + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, cache, {"tokens": tokens})
@@ -44,14 +52,16 @@ def _run(params, cfg, tokens, n_decode):
     t1 = time.perf_counter()
     for j in range(n_decode):
         tok = torch.tensor([[nxt]], device="cuda")
-        logits, cache = decode(params, cache, tokens=tok,
-                               pos0=tokens.shape[1] + j)
+        logits, cache = decode(params, cache, tokens=tok, pos0=s + j)
         nxt = int(torch.argmax(logits[0, -1]))
     t2 = time.perf_counter()
     return t1 - t0, t2 - t1
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -65,7 +75,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    cfg, params = build(ARCH)
+    cfg, params = build(args.arch)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, PROMPT)),
                              device="cuda")
@@ -93,15 +103,15 @@ def main() -> int:
             ops = {k: (s - busy[0][1].get(k, (0.0, 0))[0],
                        c - busy[0][1].get(k, (0.0, 0))[1])
                    for k, (s, c) in busy[1][1].items()}
-        attn = sum(s for k, (s, _) in ops.items()
-                   if "flash_kernel" in k or "decode_kernel" in k)
+        mine = sum(s for k, (s, _) in ops.items()
+                   if any(n in k for n in KERNELS))
         top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
         print(json.dumps({
             "phase": name, "arch": cfg.name, "tokens": n_tok,
             "wall_s": w, "tokens_per_s": n_tok / w,
             "ms_per_step": w * 1e3 / (1 if name == "prefill" else n_tok),
             "device_busy_s": b, "idle_share": 1.0 - b / w,
-            "attention_kernel_s": attn,
+            "port_kernels_s": mine,
             "top_device_ops": [{"op": k[:80], "s": s, "count": c}
                                for k, (s, c) in top]}), flush=True)
     return 0

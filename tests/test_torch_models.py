@@ -1,9 +1,10 @@
-"""The port's dense-block LM against the JAX package's, on the CPU, in f32.
+"""The port's LM (dense-block, xLSTM and Hymba families) against the JAX
+package's, on the CPU, in f32.
 
 Both packages run the same weights: the JAX model's ``init_params`` pytree,
 handed to the port through ``convert.lm_params_from_arrays``.  The JAX side
 takes its kernel route (``use_kernel=True``: Pallas in interpret mode), the
-port its plain attention versions.  Tolerance ``rtol=1e-5, atol=1e-5`` on
+port its plain attention and GLA versions.  Tolerance ``rtol=1e-5, atol=1e-5`` on
 logits of magnitude ~1: the two differ only in the order of f32 sums.
 """
 import dataclasses
@@ -26,6 +27,8 @@ from repro_torch.models import transformer as tf
 
 DENSE = ["stablelm-1.6b", "minitron-8b", "starcoder2-15b",
          "deepseek-coder-33b", "llava-next-mistral-7b", "musicgen-large"]
+RECURRENT = ["xlstm-350m", "hymba-1.5b"]
+PORTED = DENSE + RECURRENT
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 2, 17
 
@@ -50,11 +53,12 @@ def _jax_run(arch):
         jin = {"embeds": jnp.asarray(inp["embeds"])}
     first = {k: v[:, :S] for k, v in jin.items()}
     last = {k: v[:, S:] for k, v in jin.items()}
+    m = jcfg.meta_tokens        # decode counts them (forward's contract)
     train, _, _ = jtf.forward(jparams, jcfg, mode="train", **jin)
-    cache = jtf.init_cache(jcfg, B, S + 1)
+    cache = jtf.init_cache(jcfg, B, m + S + 1)
     pre, cache, _ = jtf.forward(jparams, jcfg, cache=cache, mode="prefill",
                                 **first)
-    dec, _, _ = jtf.forward(jparams, jcfg, cache=cache, pos0=S,
+    dec, _, _ = jtf.forward(jparams, jcfg, cache=cache, pos0=m + S,
                             mode="decode", **last)
     tree = jax.tree.map(np.asarray, jparams)
     return tree, inp, {"train": np.asarray(train), "prefill": np.asarray(pre),
@@ -66,22 +70,23 @@ def _port_inputs(inp, sl):
             for k, v in inp.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
 def test_forward_matches_jax(arch, mode):
     tree, inp, want = _jax_run(arch)
     cfg = _f32(arch)
+    m = cfg.meta_tokens
     params = lm_params_from_arrays(tree, cfg, device="cpu")
     if mode == "train":
         got, cache, aux = tf.forward(params, cfg, mode="train",
                                      **_port_inputs(inp, slice(None)))
         assert cache is None and float(aux) == 0.0
     else:
-        cache = tf.init_cache(cfg, B, S + 1, device="cpu")
+        cache = tf.init_cache(cfg, B, m + S + 1, device="cpu")
         got, cache, _ = tf.forward(params, cfg, cache=cache, mode="prefill",
                                    **_port_inputs(inp, slice(0, S)))
         if mode == "decode":
-            got, _, _ = tf.forward(params, cfg, cache=cache, pos0=S,
+            got, _, _ = tf.forward(params, cfg, cache=cache, pos0=m + S,
                                    mode="decode",
                                    **_port_inputs(inp, slice(S, S + 1)))
     assert got.dtype == torch.float32
@@ -101,20 +106,21 @@ def _slice(batch, sl):
     return {k: v[:, sl] for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_then_decode_matches_full_forward(arch):
-    """Mirrors tests/test_models_smoke.py: decode of token s equals the
-    full-sequence forward at s (here in f32, to 1e-5)."""
+    """Mirrors tests/test_models_smoke.py: decode of token s (at position
+    meta + s) equals the full-sequence forward at s (here in f32, to
+    1e-5)."""
     cfg = _f32(arch)
     params = tf.init_params(torch.Generator().manual_seed(3), cfg)
-    b, s = 2, 16
+    b, s, m = 2, 16, cfg.meta_tokens
     batch = _batch(cfg, np.random.default_rng(4), b, s + 1)
     full, _, _ = tf.forward(params, cfg, mode="train", **batch)
-    cache = tf.init_cache(cfg, b, s + 1, device="cpu")
+    cache = tf.init_cache(cfg, b, m + s + 1, device="cpu")
     _, cache, _ = tf.forward(params, cfg, cache=cache, mode="prefill",
                              **_slice(batch, slice(0, s)))
-    dec, _, _ = tf.forward(params, cfg, cache=cache, pos0=s, mode="decode",
-                           **_slice(batch, slice(s, s + 1)))
+    dec, _, _ = tf.forward(params, cfg, cache=cache, pos0=m + s,
+                           mode="decode", **_slice(batch, slice(s, s + 1)))
     torch.testing.assert_close(dec[:, 0], full[:, s], **TOL)
 
 
@@ -135,6 +141,28 @@ def test_sliding_window_decode_ring_buffer():
     for t in range(total, total + 1):
         dec, cache, _ = tf.forward(params, cfg, tokens=toks[:, t:t + 1],
                                    cache=cache, pos0=t, mode="decode")
+        torch.testing.assert_close(dec[:, 0], full[:, t], **TOL)
+
+
+def test_hymba_ring_buffer_decode_past_window():
+    """tests/test_models_smoke.py's ring-buffer case for Hymba: prefill
+    past the sink + window ring, then decode steps that wrap it, each
+    equal to the full forward (f32, to 1e-5)."""
+    cfg = _f32("hymba-1.5b")
+    m, w = cfg.meta_tokens, cfg.sliding_window
+    s_text = cfg.sliding_window * 2 + 7
+    steps = 3
+    params = tf.init_params(torch.Generator().manual_seed(5), cfg)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, s_text + steps)))
+    full, _, _ = tf.forward(params, cfg, tokens=toks, mode="train")
+    cache = tf.init_cache(cfg, 1, m + s_text + steps, device="cpu")
+    assert cache[0]["attn"]["k"].shape[1] == m + w
+    _, cache, _ = tf.forward(params, cfg, tokens=toks[:, :s_text],
+                             cache=cache, mode="prefill")
+    for t in range(s_text, s_text + steps):
+        dec, cache, _ = tf.forward(params, cfg, tokens=toks[:, t:t + 1],
+                                   cache=cache, pos0=m + t, mode="decode")
         torch.testing.assert_close(dec[:, 0], full[:, t], **TOL)
 
 
@@ -175,7 +203,7 @@ def test_fp8_kv_cache_decode_close_to_bf16_and_to_jax():
         >= 0.99
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_count_formula_matches_init(arch):
     cfg = registry.smoke(arch)
     params = tf.init_params(torch.Generator().manual_seed(0), cfg)
@@ -209,14 +237,41 @@ def test_dtypes():
     assert _f32("stablelm-1.6b").torch_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b",
-                                  "xlstm-350m", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b"])
 def test_unported_families_raise(arch):
     cfg = registry.smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.init_cache(cfg, 1, 8, device="cpu")
+
+
+def _dtypes(tree):
+    if isinstance(tree, dict):
+        return {k: _dtypes(v) for k, v in tree.items()}
+    return str(tree.dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("arch", RECURRENT + ["stablelm-1.6b"])
+def test_bf16_leaf_dtypes_match_jax(arch):
+    """In a bf16 model the leaves the JAX package keeps in f32 (mLSTM gate
+    projection, Mamba step size, decay and skip, the hybrid mixing
+    scalars) stay f32, both from the port's init and through the
+    converter; every other leaf is bf16."""
+    jcfg = jregistry.smoke(arch)
+    jparams = jtf.init_params(jax.random.key(1), jcfg)
+    want = {k: _dtypes(v) for k, v in jparams.items() if k != "layers"}
+    want["layers"] = _dtypes(jparams["layers"])
+    cfg = registry.smoke(arch)
+    for params in (lm_params_from_arrays(jax.tree.map(np.asarray, jparams),
+                                         cfg, device="cpu"),
+                   tf.init_params(torch.Generator().manual_seed(1), cfg)):
+        got = {k: _dtypes(v) for k, v in params.items() if k != "layers"}
+        assert got == {k: v for k, v in want.items() if k != "layers"}
+        for layer in params["layers"]:
+            assert _dtypes(layer) == want["layers"]
+    if cfg.family != "dense":
+        assert "float32" in str(want["layers"])
 
 
 def test_rms_norm_matches_jax():

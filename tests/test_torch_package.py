@@ -37,6 +37,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.models.transformer, repro_torch.models.attention, "
         "repro_torch.kernels.flash_attention, "
         "repro_torch.kernels.decode_attention, "
+        "repro_torch.kernels.gla_chunk, repro_torch.models.ssm, "
+        "repro_torch.profile_serve, "
         "repro_torch.training.train_loop, repro_torch.serving.scheduler, "
         "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -59,12 +59,22 @@ def _port_batcher(cfg, params, max_batch):
 
 @pytest.mark.parametrize("max_batch", [1, 3])
 def test_greedy_tokens_equal_jax(max_batch):
-    jcfg = dataclasses.replace(jregistry.smoke("stablelm-1.6b"),
-                               dtype="float32", use_kernel=True)
+    _check_greedy_tokens_equal_jax("stablelm-1.6b", max_batch)
+
+
+@pytest.mark.parametrize("max_batch", [1, 3])
+def test_xlstm_greedy_tokens_equal_jax(max_batch):
+    """xLSTM behind both batchers: the recurrent state and conv tail carry
+    through decode (no attention, no meta tokens)."""
+    _check_greedy_tokens_equal_jax("xlstm-350m", max_batch)
+
+
+def _check_greedy_tokens_equal_jax(arch, max_batch):
+    jcfg = dataclasses.replace(jregistry.smoke(arch), dtype="float32",
+                               use_kernel=True)
     jparams = jtf.init_params(jax.random.key(0), jcfg)
     want = _jax_outputs(jcfg, jparams, 5, max_batch)
-    cfg = dataclasses.replace(registry.smoke("stablelm-1.6b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     params = lm_params_from_arrays(jax.tree.map(np.asarray, jparams), cfg,
                                    device="cpu")
     batcher = _port_batcher(cfg, params, max_batch)
@@ -161,6 +171,22 @@ def test_serve_cli_raises_without_a_card():
         pytest.skip("a CUDA card is present: the default device runs there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.main(["--arch", "stablelm-1.6b", "--smoke"])
+
+
+def test_serve_cli_xlstm_on_cpu(capsys):
+    r = serve_cli.main(["--arch", "xlstm-350m", "--smoke", "--device",
+                        "cpu", "--requests", "3", "--max-new", "3"])
+    assert r["done"] == 3 and r["decode_tokens"] == 6
+    assert "[serve] xlstm-350m-smoke on cpu: 3 requests" in \
+        capsys.readouterr().out
+
+
+def test_serve_rejects_meta_tokens():
+    """The batcher decodes at the prompt's length, without the meta-token
+    offset that forward counts, so serve() refuses Hymba."""
+    cfg, params = serve_cli.build("hymba-1.5b", smoke=True, device="cpu")
+    with pytest.raises(ValueError, match="meta"):
+        serve_cli.serve(cfg, params, [np.array([1, 2])], 2, device="cpu")
 
 
 def test_serve_rejects_multi_head_outputs():

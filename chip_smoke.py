@@ -16,19 +16,25 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 3. the state at deployment size: a dense table over 2^20 objects, with the
    kernel path held against the plain path and the ``evict_top=0`` path;
 4. the two attention kernels against their plain versions on the card over
-   head widths 16/32/64/128, GQA groups 1/4/12/24, ragged Sq and Sk,
-   windows of 4096 (with and without a sink) and 32, softcap 0 and 30, a
-   wrapped ring-buffer cache with empty slots, Hymba-1.5B's shapes (25 q
-   and 5 KV heads of 64, window 1024 with a 128-token sink, a wrapped
-   1152-slot ring with empty slots), in f32 (max |diff| <= 1e-5) and bf16
-   (at most one bf16 ulp of each output element, plus 1e-5); then their
-   times at StableLM-2-1.6B's shapes beside the plain versions and
-   PyTorch's ``scaled_dot_product_attention``;
+   head widths 16/32/64/128 (bf16 takes the tensor-core prefill kernel,
+   f32 the CUDA-core one), GQA groups 1/4/12/24, ragged Sq and Sk
+   (Sq 17, 31 and 33 against the 16-row mma tile), windows of 4096 (with
+   and without a sink) and 32, softcap 0 and 30, a wrapped ring-buffer
+   cache with empty slots, decode caches of 1, 63, 65 and 129 slots
+   (against the 64-slot split granularity) and of 4300 slots at batch 3
+   (dozens of splits), caches with no visible slot, Hymba-1.5B's shapes
+   (25 q and 5 KV heads of 64, window 1024 with a 128-token sink, a
+   wrapped 1152-slot ring with empty slots), in f32 (max |diff| <= 1e-5)
+   and bf16 (at most one bf16 ulp of each output element, plus 1e-5);
+   then their times at StableLM-2-1.6B's and Hymba-1.5B's shapes beside
+   their bounds, the plain versions and PyTorch's
+   ``scaled_dot_product_attention``;
 5. the LM serve path at full width: ``stablelm-1.6b`` (24 layers, d 2048,
    bf16, random weights from a seed) behind a ``ContinuousBatcher``
    (max_batch 4, 8 requests of 512-2048 prompt tokens, 32 new tokens
    each) through the kernels, the same requests through the plain
-   versions, and an f32 check of prefill and teacher-forced decode logits
+   versions (both after an untimed warm-up of both on the same
+   prompts), and an f32 check of prefill and teacher-forced decode logits
    of the kernel path against the plain path;
 6. the ``gla_chunk`` kernel against its plain version on the card over
    (dk, dv) in (16, 128), (512, 512), (64, 64), (16, 32), chunks of 16,
@@ -45,7 +51,8 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    the meta tokens out of its positions, so ``serve`` refuses the
    model): prompts of 1,000 and 2,048 tokens and 16 decode steps each,
    through ``gla_chunk``, ``flash_attention`` and ``decode_attention``
-   and through their plain versions, and the f32 check.
+   and through their plain versions (after an untimed warm-up of both),
+   and the f32 check.
 
 Each main-path run starts from zeroed launch counts and must launch every
 kernel it reaches (the LM runs: exactly once a layer per prompt or per
@@ -412,11 +419,12 @@ def bf16_ulp_excess(got, want):
 
 def phase_attention() -> dict:
     """Both attention kernels against their plain versions over the sweep;
-    timings at StableLM-2-1.6B's shapes."""
+    timings at StableLM-2-1.6B's and Hymba-1.5B's shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_splits, q_tile)
     from repro_torch.kernels.flash_attention import flash_attention
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -494,6 +502,37 @@ def phase_attention() -> dict:
                                                pos, **kw),
                       f"dh={dh} Sc={s} {kw}")
                 cases += 2
+    # edges of the two designs: Sq ragged against the 16-row mma tile;
+    # caches of 1, 63, 65 and 129 slots against the 64-slot split
+    # granularity (65: a last split of one slot), 4300 slots at batch 3
+    # (dozens of splits), the last splits empty, and no visible slot
+    for dt, tdt in dts.items():
+        for dh in (16, 32, 64, 128):
+            h, kv = 8, 2
+            for sq, sk in ((17, 17), (31, 95), (33, 200)):
+                q, k, v = (rnd((2, sq, h, dh), tdt), rnd((2, sk, kv, dh), tdt),
+                           rnd((2, sk, kv, dh), tdt))
+                qp, kp = ipos(range(sk - sq, sk)), ipos(range(sk))
+                check("flash_attention", dt,
+                      flash_attention(q, k, v, qp, kp, window=16, sink=2),
+                      ref.flash_attention_ref(q, k, v, qp, kp, window=16,
+                                              sink=2),
+                      f"dh={dh} Sq={sq} Sk={sk} window 16, sink 2")
+                cases += 1
+            for b, sc in ((2, 1), (2, 63), (2, 65), (1, 129), (3, 4300)):
+                q, k, v = (rnd((b, 1, h, dh), tdt), rnd((b, sc, kv, dh), tdt),
+                           rnd((b, sc, kv, dh), tdt))
+                tail = ipos([i if i < sc - sc // 3 else -1 for i in range(sc)])
+                for qp, kp, what in ((ipos([sc - 1]), ipos(range(sc)), "full"),
+                                     (ipos([sc]), tail, "last third empty"),
+                                     (ipos([0]), ipos([i + 1 for i in
+                                                       range(sc)]),
+                                      "no visible slot")):
+                    check("decode_attention", dt,
+                          decode_attention(q, k, v, qp, kp),
+                          ref.decode_attention_ref(q, k, v, qp, kp),
+                          f"dh={dh} B={b} Sc={sc} {what}")
+                    cases += 1
     # Hymba-1.5B's shapes (25 q heads and 5 KV heads of 64, window 1024
     # with a 128-token sink): prefill over 128 meta + 2048 prompt tokens,
     # and decode over a wrapped 1152-slot ring (sink slots in place, ring
@@ -521,6 +560,11 @@ def phase_attention() -> dict:
               ref.decode_attention_ref(qd, kc, vc, qpd, kp, **kw),
               f"Hymba decode ring {ring} H={h} KV={kv} {kw}")
         cases += 2
+    # timed below: the bf16 tensors, 40 rings (59 MB, out of L2 in turn)
+    hy_pre = (q, k, v, pos, pos, kw)
+    hy_rings = [(kc, vc)] + [(rnd((1, ring, kv, dh), tdt),
+                              rnd((1, ring, kv, dh), tdt)) for _ in range(39)]
+    hy_dec = (qd, qpd, kp, kw)
     # StableLM-2-1.6B's shapes on the main path (bf16, B=1, 32 MHA heads of
     # 64): causal prefill at S=2048, and decode over a full cache of 2048
     # (4 caches, 67 MB, taken in turn when timed below, so each call finds
@@ -553,51 +597,107 @@ def phase_attention() -> dict:
     log(f"phase 4: attention kernels == plain within tolerance over "
         f"{cases} cases (f32 <= 1e-5; bf16 <= 1 ulp + 1e-5)")
 
-    # --- timings at StableLM-2-1.6B's shapes (bf16) ------------------------
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    elt = 2
-    pre_flops = 2 * 2 * (s * (s + 1) // 2) * h * dh
-    pre_bytes = 4 * b * s * h * dh * elt
-    t = {"flash_attention": (
-        time_ms(lambda: flash_attention(q, k, v, pos, pos), 20),
-        time_ms(lambda: ref.flash_attention_ref(q, k, v, pos, pos), 5),
-        max(pre_flops / BF16_FLOPS, pre_bytes / HBM_BYTES_PER_S) * 1e3,
-        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True), 20),
-        "operations" if pre_flops / BF16_FLOPS
-        > pre_bytes / HBM_BYTES_PER_S else "bytes")}
-    caches_t = [(kc.transpose(1, 2).contiguous(),
-                 vc.transpose(1, 2).contiguous()) for kc, vc in caches]
-    qdt = qd.transpose(1, 2).contiguous()
-    turn = [0]
+    # --- timings at StableLM-2-1.6B's and Hymba-1.5B's shapes (bf16) -------
+    def bound(q, k, q_pos, k_pos, kw):
+        """The least time of one call, the larger of its operations (q.k
+        and p.v over the visible pairs) at the bf16 tensor rate and its
+        bytes (q, k, v, out and the positions, each once) at 3.35 TB/s;
+        also the operations of the tensor-core kernel's split-P work (p.v
+        twice: p as bf16 hi + lo)."""
+        b, sq, h, dh = q.shape
+        sk, kv = k.shape[1], k.shape[2]
+        pairs = int(ref.attention_keep(q_pos, k_pos, kw["window"],
+                                       kw["sink"]).sum()) * b * h
+        flops = 2 * 2 * pairs * dh
+        nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * q.element_size() \
+            + (sq + sk) * 4
+        ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S \
+            * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms > bytes_ms else "bytes",
+                1.5 * flops / BF16_FLOPS * 1e3)
 
-    def rot(fn):
+    def heads_first(*xs):
+        return [x.transpose(1, 2).contiguous() for x in xs]
+
+    def rot(fn, n):
+        turn = [0]
+
         def call():
-            turn[0] = (turn[0] + 1) % 4
+            turn[0] = (turn[0] + 1) % n
             return fn(turn[0])
         return call
 
-    dec_bytes = (2 * b * s * h * dh + 2 * b * h * dh) * elt + s * 4
-    dec_flops = 2 * 2 * s * h * dh
-    t["decode_attention"] = (
-        time_ms(rot(lambda i: decode_attention(qd, *caches[i], qpd, pos))),
-        time_ms(rot(lambda i: ref.decode_attention_ref(qd, *caches[i], qpd,
-                                                       pos)), 20),
-        max(dec_bytes / HBM_BYTES_PER_S, dec_flops / BF16_FLOPS) * 1e3,
-        time_ms(rot(lambda i: F.scaled_dot_product_attention(
-            qdt, *caches_t[i]))),
-        "bytes" if dec_bytes / HBM_BYTES_PER_S > dec_flops / BF16_FLOPS
-        else "operations")
-    for name, (ms, plain, bound, lib, by) in t.items():
-        log(f"phase 4: {name} at StableLM shapes (B=1, 32 heads of 64, "
-            f"{'S' if name == 'flash_attention' else 'Sc'}=2048, bf16): "
+    kw0 = dict(window=0, sink=0)
+    qt, kt, vt = heads_first(q, k, v)
+    hq, hk, hv, hpos, _, hkw = hy_pre
+    hmask = ref.attention_keep(hpos, hpos, hkw["window"], hkw["sink"])
+    hqt, hkt, hvt = heads_first(hq, hk, hv)
+    hqd, hqpd, hkp, _ = hy_dec
+    hdmask = ref.attention_keep(hqpd, hkp, hkw["window"], hkw["sink"])
+    hqdt = heads_first(hqd)[0]
+    hrings_t = [heads_first(kc, vc) for kc, vc in hy_rings]
+    caches_t = [heads_first(kc, vc) for kc, vc in caches]
+    qdt = heads_first(qd)[0]
+    nr = len(hy_rings)
+    t = {
+        ("flash_attention", "StableLM"): (
+            time_ms(lambda: flash_attention(q, k, v, pos, pos), 20),
+            time_ms(lambda: ref.flash_attention_ref(q, k, v, pos, pos), 5),
+            bound(q, k, pos, pos, kw0),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 20),
+            "B=1, S=2048, 32 heads of 64, causal"),
+        ("flash_attention", "Hymba"): (
+            time_ms(lambda: flash_attention(hq, hk, hv, hpos, hpos, **hkw),
+                    20),
+            time_ms(lambda: ref.flash_attention_ref(hq, hk, hv, hpos, hpos,
+                                                    **hkw), 5),
+            bound(hq, hk, hpos, hpos, hkw),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                hqt, hkt, hvt, attn_mask=hmask, enable_gqa=True), 20),
+            "B=1, S=2176, 25 q / 5 KV heads of 64, window 1024, sink 128"),
+        ("decode_attention", "StableLM"): (
+            time_ms(rot(lambda i: decode_attention(qd, *caches[i], qpd, pos),
+                        4)),
+            time_ms(rot(lambda i: ref.decode_attention_ref(
+                qd, *caches[i], qpd, pos), 4), 20),
+            bound(qd, caches[0][0], qpd, pos, kw0),
+            time_ms(rot(lambda i: F.scaled_dot_product_attention(
+                qdt, *caches_t[i]), 4)),
+            "B=1, Sc=2048, 32 heads of 64"),
+        ("decode_attention", "Hymba"): (
+            time_ms(rot(lambda i: decode_attention(
+                hqd, *hy_rings[i], hqpd, hkp, **hkw), nr)),
+            time_ms(rot(lambda i: ref.decode_attention_ref(
+                hqd, *hy_rings[i], hqpd, hkp, **hkw), nr), 20),
+            bound(hqd, hy_rings[0][0], hqpd, hkp, hkw),
+            time_ms(rot(lambda i: F.scaled_dot_product_attention(
+                hqdt, *hrings_t[i], attn_mask=hdmask, enable_gqa=True), nr)),
+            "B=1, wrapped ring of 1152, 25 q / 5 KV heads of 64"),
+    }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (name, cell), (ms, plain, (bnd, by, split_p), lib, shape) in \
+            t.items():
+        extra = (f", split-P work bound {split_p * 1e3:.2f} us"
+                 if name == "flash_attention" else "")
+        log(f"phase 4: {name} at {cell}'s shape ({shape}, bf16): "
             f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.2f} us ({by}), scaled_dot_product_attention "
-            f"{lib * 1e3:.2f} us")
-    return {name: dict(ms=ms, plain_ms=plain, bound_ms=bound, library_ms=lib,
+            f"{bnd * 1e3:.2f} us ({by}){extra}, "
+            f"scaled_dot_product_attention {lib * 1e3:.2f} us")
+    for cell, (qq, kk) in (("StableLM", (qd, caches[0][0])),
+                           ("Hymba", (hqd, hy_rings[0][0]))):
+        group = qq.shape[2] // kk.shape[2]
+        tiles = kk.shape[2] * -(-group // q_tile(group))
+        n_split, split_len = decode_splits(kk.shape[1], tiles, sms)
+        log(f"phase 4: decode_attention at {cell}'s shape: {n_split} "
+            f"splits of {split_len} slots, {tiles * n_split} blocks on "
+            f"{sms} SMs")
+    return {name: dict(ms=ms, plain_ms=plain, bound_ms=bnd, library_ms=lib,
                        bound_by=by,
                        max_abs_err=max(worst[(name, d)][0] for d in dts))
-            for name, (ms, plain, bound, lib, by) in t.items()}
+            for (name, cell), (ms, plain, (bnd, by, _), lib, _) in t.items()
+            if cell == "StableLM"}
 
 
 def to_f32(t):
@@ -704,6 +804,10 @@ def phase_serve(phase: int, arch: str, launches: dict,
     want = {k: cfg.n_layers * len(prompts) for k in per_prompt}
     want.update({k: cfg.n_layers * len(prompts) * (max_new - 1)
                  for k in per_token})
+    # untimed warm-up of both paths on the same prompts (2 new tokens), so
+    # neither timed run pays first-use costs (library heuristics, memory)
+    for mode in (True, "ref"):
+        serve(dataclasses.replace(cfg, use_kernel=mode), params, prompts, 2)
     runs = {}
     for mode in (True, "ref"):
         c = dataclasses.replace(cfg, use_kernel=mode)
@@ -895,6 +999,11 @@ def phase_hymba(launches: dict) -> None:
     want = {"gla_chunk": n_l * len(prompts),
             "flash_attention": n_l * len(prompts),
             "decode_attention": n_l * len(prompts) * steps}
+    # untimed warm-up of both paths on the same prompts (as in phase 5)
+    for mode in (True, "ref"):
+        for p in prompts:
+            run_request(dataclasses.replace(cfg, use_kernel=mode), params, p,
+                        2)
     outs = {}
     for mode in (True, "ref"):
         c = dataclasses.replace(cfg, use_kernel=mode)

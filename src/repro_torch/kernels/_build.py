@@ -44,7 +44,7 @@ SIGNATURES = {
         + [_F32, _INT, _F32, _INT, _INT, _P],
     },
     "decode_attention": {
-        "decode_attention": [_P] * 6 + [_INT] * 5 + [_I64] * 8
+        "decode_attention": [_P] * 8 + [_INT] * 8 + [_I64] * 8
         + [_F32, _INT, _F32, _INT, _INT, _P],
     },
     "gla_chunk": {

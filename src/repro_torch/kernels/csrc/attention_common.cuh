@@ -1,5 +1,6 @@
 // Shared device helpers of the attention kernels (flash_attention.cu,
-// decode_attention.cu): the mask, the f32 conversions and the tile loader.
+// decode_attention.cu): the mask, the f32 conversions, the tile loader and
+// the asynchronous copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,6 +84,30 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
             for (int j = 0; j < V; ++j) d[j] = f[j];
         }
     }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !ok (the
+// source address must still be valid).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace

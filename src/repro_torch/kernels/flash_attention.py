@@ -6,8 +6,10 @@ It replaces the Pallas kernel of the JAX package's
 ``(B, Sk, KV, dh)``, read through their strides (the last axis contiguous,
 every row on a 16-byte boundary), in bf16 or f32; ``q_pos (Sq,)`` and
 ``k_pos (Sk,)`` are the absolute positions, shared by every batch row,
-with -1 for an empty key slot.  The softmax and both products run in f32;
-the output has q's dtype.
+with -1 for an empty key slot.  The softmax runs in f32 and the output
+has q's dtype.  bf16 inputs take the tensor-core kernel (bf16 products
+summed in f32, P split into two bf16 terms); f32 inputs take the
+CUDA-core kernel, with both products in f32.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version in :mod:`repro_torch.kernels.ref`.

@@ -6,6 +6,10 @@ agree bit for bit (those kernels are built with ``--fmad=false``).  The
 attention functions are the JAX package's oracles (``kernels/ref.py``):
 an f32 softmax over the whole key axis, where the kernels run an online
 softmax over key tiles, so the two differ only in the order of f32 sums.
+``flash_attention_split_p`` and ``decode_attention_splits`` emulate the
+rounding and the order of the two attention kernels (tensor-core products
+with P split into two bf16 terms; per-split partial softmax states and
+their merge); only tests use them.
 ``gla_chunk_plain`` is the chunkwise form of the GLA kernel's arithmetic
 (the kernel sums the same f32 products in another order);
 ``gla_chunk_ref`` is the sequential oracle, for tests.  Every kernel wrapper runs its plain version here for tensors that lie on
@@ -139,6 +143,93 @@ def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
     """Single-token decode: q (B,1,H,dh) against k/v (B,Sk,KV,dh)."""
     return flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                softcap=softcap, sink=sink)
+
+
+def _logits(qg, k, q_pos, k_pos, window, softcap, sink, dh):
+    """Scaled, softcapped and masked f32 logits ``(B,KV,G,Sq,Sk)`` of the
+    grouped queries ``qg (B,Sq,KV,G,dh)`` against ``k (B,Sk,KV,dh)``, as
+    :func:`flash_attention_ref` forms them."""
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dh ** -0.5
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    keep = attention_keep(q_pos, k_pos, window, sink)
+    return torch.where(keep[None, None, None], logits,
+                       torch.tensor(NEG_INF, dtype=torch.float32,
+                                    device=logits.device))
+
+
+def _bf16_terms(p):
+    """``p`` (f32) as the two bf16 terms ``hi = bf16(p)``, ``lo = bf16(p -
+    hi)`` that the tensor-core kernel multiplies with v, back in f32."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def flash_attention_split_p(q, k, v, q_pos, k_pos, *, window: int = 0,
+                            softcap: float = 0.0, sink: int = 0,
+                            block_k: int = 64):
+    """The rounding of ``csrc/flash_attention.cu``'s tensor-core (bf16)
+    route, for tests: q.k products summed in f32, an online softmax over
+    key tiles of ``block_k``, and P split into bf16 ``hi + lo`` whose
+    products with v are summed in f32.  Same arguments and result as
+    :func:`flash_attention_ref`."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, dh).float()
+    m = torch.full((b, kv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dh), device=q.device)
+    for k0 in range(0, sk, block_k):
+        ks = slice(k0, k0 + block_k)
+        s = _logits(qg, k[:, ks], q_pos, k_pos[ks], window, softcap, sink,
+                    dh)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi, lo = _bf16_terms(p)
+        vt = v[:, ks].float()
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bkgqs,bskd->bkgqd", hi, vt)
+               + torch.einsum("bkgqs,bskd->bkgqd", lo, vt))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention_splits(q, k, v, q_pos, k_pos, *, n_split: int,
+                            split_len: int, window: int = 0,
+                            softcap: float = 0.0, sink: int = 0):
+    """The order of ``csrc/decode_attention.cu``, for tests: the cache cut
+    into ``n_split`` ranges of ``split_len`` slots, each range's partial
+    softmax state ``(m_s, l_s, acc_s)`` in f32, then the merge
+    ``M = max m_s``, ``l = sum l_s e^(m_s - M)``, ``acc = sum acc_s
+    e^(m_s - M)``, ``out = acc / max(l, 1e-30)``.  A range with no visible
+    slot has ``m_s = -1e30`` and ``l_s`` = its slot count.  Same arguments
+    and result as :func:`decode_attention_ref`."""
+    b, sq, h, dh = q.shape
+    sc, kv = k.shape[1], k.shape[2]
+    if not (n_split - 1) * split_len < sc <= n_split * split_len:
+        raise ValueError(f"{n_split} splits of {split_len} do not cut "
+                         f"{sc} slots into non-empty ranges")
+    qg = q.reshape(b, sq, kv, h // kv, dh).float()
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        ks = slice(i * split_len, (i + 1) * split_len)
+        s = _logits(qg, k[:, ks], q_pos, k_pos[ks], window, softcap, sink,
+                    dh)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgqs,bskd->bkgqd", p, v[:, ks].float()))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0))
+    l = (torch.stack(ls) * w).sum(0)
+    acc = (torch.stack(accs) * w[..., None]).sum(0)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,8 +32,16 @@ import sys
 import time
 
 PROMPT, DECODE = 2048, 32
-# the port's kernels, by their CUDA function names
-KERNELS = ("flash_kernel", "decode_kernel", "gla_kernel")
+# the port's LM kernels, by their CUDA function names (every __global__
+# function of csrc/flash_attention.cu, decode_attention.cu, gla_chunk.cu)
+KERNELS = ("flash_kernel", "flash_mma_kernel", "decode_split_kernel",
+           "gla_kernel")
+
+
+def is_port_kernel(op: str) -> bool:
+    """Whether a profiler op name (``void (anonymous namespace)::name<...>
+    (...)``) is one of :data:`KERNELS`."""
+    return any(f"::{n}<" in op for n in KERNELS)
 
 
 def _run(params, cfg, tokens, n_decode):
@@ -103,8 +111,7 @@ def main(argv=None) -> int:
             ops = {k: (s - busy[0][1].get(k, (0.0, 0))[0],
                        c - busy[0][1].get(k, (0.0, 0))[1])
                    for k, (s, c) in busy[1][1].items()}
-        mine = sum(s for k, (s, _) in ops.items()
-                   if any(n in k for n in KERNELS))
+        mine = sum(s for k, (s, _) in ops.items() if is_port_kernel(k))
         top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
         print(json.dumps({
             "phase": name, "arch": cfg.name, "tokens": n_tok,

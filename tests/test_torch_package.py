@@ -182,3 +182,21 @@ def test_obj_stats_conversion():
     assert o.cached.dtype == torch.bool and o.count.dtype == torch.float32
     with pytest.raises(ValueError, match="missing"):
         obj_stats_from_arrays(device="cpu", cached=np.ones(n, bool))
+
+
+def test_profile_serve_names_every_lm_kernel():
+    """profile_serve's "port kernels" time sums every CUDA kernel of the LM
+    path, by exact function name."""
+    import re
+    from repro_torch.profile_serve import KERNELS, is_port_kernel
+    found = set()
+    for src in ("flash_attention", "decode_attention", "gla_chunk"):
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        found |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+            r"(\w+)\s*\(", text))
+    assert found == set(KERNELS)
+    assert is_port_kernel("void (anonymous namespace)::flash_mma_kernel<64>"
+                          "(__nv_bfloat16 const*)")
+    assert not is_port_kernel("void at::native::vectorized_elementwise_"
+                              "kernel<4>(int)")

@@ -7,8 +7,17 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 
 0. build every CUDA kernel from src/repro_torch/kernels/csrc (one nvcc per
    source, started together);
-1. each kernel's wrapper against its plain PyTorch version on the card,
-   bitwise, at the main path's shapes, with CUDA-event timings;
+1. the simulator's kernels against their plain PyTorch versions on the
+   card, bitwise: the ranking kernels at N = 1, 100, 1,025, 2^20,
+   1,000,003 and 2^22 + 1 (top 1, 8 and 64, three densities, scores tied
+   across tiles), the per-row lane scatter at the main path's stacked
+   shapes, and ``lane_scatter_batch`` on random batches (the serve's
+   [24, N] f32 + [4, N] bool write, a 9-write eviction batch on [2, N]
+   bool, masks, set and add, elements written twice, a target and a view
+   of it, batches over the parameter block), one launch a block; then
+   CUDA-event timings at the main path's shapes (the ranking kernels at
+   N = 100 and 2^20, the serve's write as one batch, as two single
+   launches and as ``index_put_``);
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
    the fig2 synthetic workload through the kernels, held bitwise against
    the same run through the plain versions on the card, plus the card's
@@ -54,8 +63,9 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    and through their plain versions (after an untimed warm-up of both),
    and the f32 check.
 
-Each main-path run starts from zeroed launch counts and must launch every
-kernel it reaches (the LM runs: exactly once a layer per prompt or per
+Each main-path run starts from zeroed launch counts, prints its
+lane-scatter launches per request, and must launch every kernel it
+reaches (the LM runs: exactly once a layer per prompt or per
 decoded token); a run through the plain versions must launch none.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
@@ -137,48 +147,161 @@ def ranking_inputs(n: int, density, seed: int):
     return lam, z, resid, sizes, cached
 
 
+RANK_NS = (1, 100, 1025, N_DEPLOY, 1_000_003)   # fig2's table is N = 100
+RANK_TOPS = (1, TOP, 64)
+
+
+def check_ranking(err: dict) -> int:
+    """Both ranking wrappers against their plain versions, bitwise: every
+    N of RANK_NS at omega 0/1/2, densities 0.5/sparse/0 and every top of
+    RANK_TOPS, plus 2^22 + 1 objects (three merge levels) at omega 1."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ranking_score import (ranking_scores,
+                                                   ranking_victim_order)
+    grid = [(n, omega, density) for n in RANK_NS for omega in (0.0, 1.0, 2.0)
+            for density in (0.5, "sparse", 0.0)]
+    grid += [((1 << 22) + 1, 1.0, density) for density in (0.5, "sparse")]
+    cases = 0
+    for seed, (n, omega, density) in enumerate(grid):
+        args = ranking_inputs(n, density, seed=seed)
+        for top in RANK_TOPS:
+            f, idx, vals = ranking_victim_order(*args, omega=omega, top=top)
+            rf, ridx, rvals = ref.ranking_victim_order_ref(
+                *args, omega, min(top, n))
+            if not (bitwise_equal(f, rf) and bitwise_equal(idx, ridx)
+                    and bitwise_equal(vals, rvals)):
+                raise AssertionError(
+                    f"ranking_victim_order != plain at n={n} omega={omega} "
+                    f"density={density} top={top}: idx {idx.tolist()[:16]} "
+                    f"vs {ridx.tolist()[:16]}, vals {vals.tolist()[:16]} "
+                    f"vs {rvals.tolist()[:16]}")
+            err["ranking_victim_order"] = max(
+                err["ranking_victim_order"], float((f - rf).abs().max()))
+            cases += 1
+        f2, i2, v2 = ranking_scores(*args, omega=omega)
+        rf2, ri2, rv2 = ref.ranking_scores_ref(*args, omega)
+        if not (bitwise_equal(f2, rf2) and int(i2) == int(ri2)
+                and bitwise_equal(v2, rv2)):
+            raise AssertionError(
+                f"ranking_scores != plain at n={n} omega={omega} "
+                f"density={density}: ({int(i2)}, {float(v2)}) vs "
+                f"({int(ri2)}, {float(rv2)})")
+        err["ranking_scores"] = max(err["ranking_scores"],
+                                    float((f2 - rf2).abs().max()))
+        cases += 1
+    return cases
+
+
+def batch_writes(rng, targets, n_writes, masked, add, repeat):
+    """Random writes (host operands) over ``targets``, round robin; with
+    ``repeat`` every other write re-hits half the elements of the previous
+    write to the same target."""
+    import numpy as np
+    import torch
+    writes, prev = [], {}
+    for k in range(n_writes):
+        x = targets[k % len(targets)]
+        rows, n = x.shape
+        idx = rng.integers(0, n, rows).astype(np.int32)
+        if repeat and id(x) in prev and k % 2:
+            idx[:rows // 2 + 1] = prev[id(x)][:rows // 2 + 1]
+        prev[id(x)] = idx
+        if x.dtype == torch.bool:
+            val = rng.random(rows) < 0.5
+        elif x.dtype == torch.int32:
+            val = rng.integers(-1000, 1000, rows).astype(np.int32)
+        else:
+            val = (rng.standard_normal(rows) * 100).astype(np.float32)
+        valid = rng.random(rows) < 0.6 if masked else None
+        writes.append((x, idx, val, valid,
+                       add if add is not None else bool(k % 2)))
+    return writes
+
+
+def check_lane_batch(err: dict) -> int:
+    """``lane_scatter_batch`` against ``lane_scatter_batch_ref``, bitwise,
+    with its launches counted against the blocks the batch packs into."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import lane_scatter as ls
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    n = N_DEPLOY
+
+    def state(rows, dtype, width=n):
+        if dtype == torch.bool:
+            return torch.rand((rows, width), generator=g, device="cuda") < 0.5
+        return (torch.randn((rows, width), generator=g, device="cuda")
+                * 100).to(dtype)
+
+    cases = 0
+    for masked in (False, True):
+        for add in (False, True, None):
+            for repeat in (False, True):
+                vals, flags = state(24, torch.float32), state(4, torch.bool)
+                ints, cached = state(8, torch.int32), state(2, torch.bool)
+                for what, targets, k in (
+                        ("serve [24, N] f32 + [4, N] bool", [vals, flags], 2),
+                        ("eviction batch, 9 writes on [2, N] bool",
+                         [cached], 9),
+                        ("f32 + i32 + bool, 12 writes",
+                         [vals, ints, flags], 12),
+                        ("[4, N] bool and its first rows as a view",
+                         [flags, flags[:2]], 6),
+                        ("240 writes on [24, N] f32 (over a block)",
+                         [vals], 240)):
+                    writes = batch_writes(rng, targets, k, masked, add,
+                                          repeat)
+                    want = {id(x): x.clone() for x in (vals, flags, ints,
+                                                       cached)}
+                    ref.lane_scatter_batch_ref(
+                        [(want[id(x)] if id(x) in want
+                          else want[id(flags)][:2], *w) for x, *w in writes])
+                    before = ls.launches["lane_scatter"]
+                    ls.lane_scatter_batch(writes)
+                    got_n = ls.launches["lane_scatter"] - before
+                    blocks = len(ls.pack(ls._prepare(writes)[1]))
+                    if got_n != blocks:
+                        raise AssertionError(f"{what}: {got_n} launches for "
+                                             f"{blocks} blocks")
+                    for x in (vals, flags, ints, cached):
+                        if not bitwise_equal(x, want[id(x)]):
+                            raise AssertionError(
+                                f"lane_scatter_batch != plain: {what}, "
+                                f"masked={masked} add={add} "
+                                f"repeat={repeat}")
+                    cases += 1
+    # one write of more rows than a block holds: cut by rows
+    big = state(5000, torch.float32, 64)
+    writes = batch_writes(rng, [big], 3, True, None, True)
+    want = big.clone()
+    ref.lane_scatter_batch_ref([(want, *w) for _, *w in writes])
+    ls.lane_scatter_batch(writes)
+    if not bitwise_equal(big, want):
+        raise AssertionError("lane_scatter_batch != plain: [5000, 64] rows")
+    cases += 1
+    return cases
+
+
 def phase_kernels() -> dict:
-    """Every kernel against its plain version; timings at main-path shapes."""
+    """Every simulator kernel against its plain version; timings at the
+    main path's shapes."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.lane_scatter import (lane_scatter_add,
+                                                  lane_scatter_batch,
                                                   lane_scatter_set)
     from repro_torch.kernels.ranking_score import (ranking_scores,
                                                    ranking_victim_order)
     err = {"ranking_victim_order": 0.0, "ranking_scores": 0.0,
            "lane_scatter": 0.0}
-    cases = 0
-    for n in (N_DEPLOY, 1_000_003):
-        for omega in (0.0, 1.0, 2.0):
-            for density in (0.5, "sparse", 0.0):
-                args = ranking_inputs(n, density, seed=cases)
-                cases += 1
-                f, idx, vals = ranking_victim_order(*args, omega=omega,
-                                                    top=TOP)
-                rf, ridx, rvals = ref.ranking_victim_order_ref(
-                    *args, omega, TOP)
-                if not (bitwise_equal(f, rf) and bitwise_equal(idx, ridx)
-                        and bitwise_equal(vals, rvals)):
-                    raise AssertionError(
-                        f"ranking_victim_order != plain at n={n} "
-                        f"omega={omega} density={density}: idx "
-                        f"{idx.tolist()} vs {ridx.tolist()}, vals "
-                        f"{vals.tolist()} vs {rvals.tolist()}")
-                err["ranking_victim_order"] = max(
-                    err["ranking_victim_order"],
-                    float((f - rf).abs().max()))
-                f2, i2, v2 = ranking_scores(*args, omega=omega)
-                rf2, ri2, rv2 = ref.ranking_scores_ref(*args, omega)
-                if not (bitwise_equal(f2, rf2) and int(i2) == int(ri2)
-                        and bitwise_equal(v2, rv2)):
-                    raise AssertionError(
-                        f"ranking_scores != plain at n={n} omega={omega} "
-                        f"density={density}: ({int(i2)}, {float(v2)}) vs "
-                        f"({int(ri2)}, {float(rv2)})")
-                err["ranking_scores"] = max(err["ranking_scores"],
-                                            float((f2 - rf2).abs().max()))
+    cases = check_ranking(err)
     log(f"phase 1: ranking kernels bitwise equal to plain over {cases} "
-        f"cases (n in 2^20, 1000003; omega 0/1/2; density 0.5/sparse/0)")
+        f"cases (n in {', '.join(map(str, RANK_NS))}, 2^22+1; omega "
+        f"0/1/2; density 0.5/sparse/0; top {'/'.join(map(str, RANK_TOPS))}"
+        f" and the argmin; scores tied across tiles)")
 
     g = torch.Generator(device="cuda").manual_seed(99)
     lane_cases = 0
@@ -218,47 +341,94 @@ def phase_kernels() -> dict:
     log(f"phase 1: lane_scatter bitwise equal to plain over {lane_cases} "
         f"cases (L 1/2/4/8/12/24; f32/i32/bool; set/add; masked or "
         f"not)")
+    batch_cases = check_lane_batch(err)
+    log(f"phase 1: lane_scatter_batch bitwise equal to plain over "
+        f"{batch_cases} batches (serve [24, N] f32 + [4, N] bool; 9 "
+        f"eviction writes on [2, N] bool; f32 + i32 + bool; a target and a "
+        f"view of it; 240 writes over a parameter block; one write of 5000 "
+        f"rows; masked or not; set, add or both; elements written twice "
+        f"or not), one launch a block")
 
     # --- timings at the main path's shapes --------------------------------
-    args = ranking_inputs(N_DEPLOY, 0.5, seed=1234)
     n = N_DEPLOY
-    rank_bytes = n * (4 * 4 + 1 + 4)
-    rank_flops = n * 16
-    rank_bound = max(rank_bytes / HBM_BYTES_PER_S,
-                     rank_flops / F32_FLOPS) * 1e3
-    t = {
-        "ranking_victim_order": (
+    t = {}
+    for n_r in (100, N_DEPLOY):
+        args = ranking_inputs(n_r, 0.5, seed=1234)
+        bound = max(n_r * (4 * 4 + 1 + 4) / HBM_BYTES_PER_S,
+                    n_r * 16 / F32_FLOPS) * 1e3
+        t[("ranking_victim_order", n_r)] = (
             time_ms(lambda: ranking_victim_order(*args, omega=1.0, top=TOP)),
             time_ms(lambda: ref.ranking_victim_order_ref(*args, 1.0, TOP)),
-            rank_bound + (TOP * 8) / HBM_BYTES_PER_S * 1e3, None),
-        "ranking_scores": (
+            bound + (TOP * 8) / HBM_BYTES_PER_S * 1e3, None)
+        t[("ranking_scores", n_r)] = (
             time_ms(lambda: ranking_scores(*args, omega=1.0)),
             time_ms(lambda: ref.ranking_scores_ref(*args, 1.0)),
-            rank_bound + 8 / HBM_BYTES_PER_S * 1e3, None),
-    }
-    # the main path's widest write: 12 f32 fields x 2 lanes of 2^20 objects
-    rows = 24
-    x = torch.zeros((rows, n), dtype=torch.float32, device="cuda")
-    idx = torch.randint(0, n, (rows,), generator=g, device="cuda",
-                        dtype=torch.int32)
-    val = torch.randn(rows, generator=g, device="cuda")
-    lanes_ix = torch.arange(rows, device="cuda")
-    idx64 = idx.long()
+            bound + 8 / HBM_BYTES_PER_S * 1e3, None)
+    # the serve's write: 12 f32 fields x 2 lanes and 2 flags x 2 lanes, as
+    # one batch (over fig2's 100 objects and over 2^20), as two single
+    # launches and as index_put_ (over 2^20)
+    rng = np.random.default_rng(7)
+
+    def serve_write(n_w):
+        vals = torch.zeros((24, n_w), dtype=torch.float32, device="cuda")
+        flags = torch.zeros((4, n_w), dtype=torch.bool, device="cuda")
+        return [(vals, rng.integers(0, n_w, 24), rng.random(24, np.float32),
+                 None, False),
+                (flags, rng.integers(0, n_w, 4), rng.random(4) < 0.5, None,
+                 False)]
+
+    # bytes: each row's index and value read, its element written
+    write_bound = (24 * (4 + 4 + 4) + 4 * (4 + 4 + 1)) / HBM_BYTES_PER_S * 1e3
+    fig2_write = serve_write(100)
+    t[("lane_scatter", 100)] = (
+        time_ms(lambda: lane_scatter_batch(fig2_write)),
+        time_ms(lambda: ref.lane_scatter_batch_ref(fig2_write)),
+        write_bound, None)
+    serve = serve_write(n)
+    dev_ops = [(x, torch.as_tensor(i, dtype=torch.int32, device="cuda"),
+                torch.as_tensor(v, device="cuda"),
+                torch.arange(x.shape[0], device="cuda"))
+               for x, i, v, _, _ in serve]
+
+    def singles():
+        for x, i, v, _ in dev_ops:
+            lane_scatter_set(x, i, v)
 
     def library():
-        x[lanes_ix, idx64] = val
+        for x, i, v, rows in dev_ops:
+            x.index_put_((rows, i.long()), v)
 
-    t["lane_scatter"] = (
-        time_ms(lambda: lane_scatter_set(x, idx, val)),
-        time_ms(lambda: ref.lane_scatter_set_ref(x, idx, val)),
-        rows * (4 + 4 + 4) / HBM_BYTES_PER_S * 1e3,
+    t[("lane_scatter", n)] = (
+        time_ms(lambda: lane_scatter_batch(serve)),
+        time_ms(lambda: ref.lane_scatter_batch_ref(serve)), write_bound,
         time_ms(library))
-    for k, (ms, plain, bound, lib) in t.items():
-        log(f"phase 1: {k}: {ms * 1e3:.2f} us/launch, plain "
-            f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us"
-            + ("" if lib is None else f", library {lib * 1e3:.2f} us"))
+    single_ms = time_ms(singles)
+    # the same write in the 32 KB parameter variant: 130 skipped rows of
+    # padding make the block too large for the 512 B one
+    pad = torch.zeros((130, 1), device="cuda")
+    padded = serve + [(pad, np.full(130, -1), np.zeros(130, np.float32),
+                       None, False)]
+    padded_ms = time_ms(lambda: lane_scatter_batch(padded))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        lane_scatter_batch(serve)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e3
+    for (k, n_k), (ms, plain, bound, lib) in t.items():
+        at = ("the serve's write, " if k == "lane_scatter" else "") + \
+            f"N={n_k}"
+        log(f"phase 1: {k} at {at}: {ms * 1e3:.2f} us/launch, plain "
+            f"{plain * 1e3:.2f} us, bound {bound * 1e3:.4f} us"
+            + ("" if lib is None else
+               f", library {lib * 1e3:.2f} us (2 x index_put_)"))
+    log(f"phase 1: lane_scatter at the serve's write, N={n}: two single "
+        f"launches {single_ms * 1e3:.2f} us; in the 32 KB parameter block "
+        f"{padded_ms * 1e3:.2f} us; one batch call {host_us:.2f} us on the "
+        f"host clock (packing + launch, 1000 calls)")
     return {k: dict(ms=v[0], plain_ms=v[1], bound_ms=v[2], library_ms=v[3],
-                    max_abs_err=err[k]) for k, v in t.items()}
+                    max_abs_err=err[k])
+            for (k, n_k), v in t.items() if n_k == N_DEPLOY}
 
 
 def same_result(a, b) -> bool:
@@ -284,7 +454,9 @@ def drive(label, fn, needs=()):
     lc = launch_counts()
     log(f"{label}: {counts['requests'] / dt:.1f} req/s, "
         f"{counts['syncs'] / counts['requests']:.3f} syncs/request, "
-        f"{counts['scoring_commits']} scoring commits, launches {lc}")
+        f"{counts['scoring_commits']} scoring commits, "
+        f"{lc['lane_scatter'] / counts['requests']:.3f} lane_scatter "
+        f"launches/request, launches {lc}")
     for k in needs:
         if lc[k] <= 0:
             raise AssertionError(f"{label} did not launch {k}")

@@ -17,9 +17,10 @@ Where the work runs:
 - The per-object state (``[L, N]`` per field) lives on the device.  Every
   point update (a serve at object i, a commit at object j) gathers the
   fields at that object for all lanes in one read-back, computes the new
-  values on the host in f32, and writes them back with one launch of the
-  lane-scatter kernel per dtype.  That read-back is the one device sync of
-  a serve or a commit.
+  values on the host in f32, and writes them back with one batched
+  lane-scatter launch (its indices and values ride in the kernel's
+  parameters, so the write needs no copy).  That read-back is the one
+  device sync of a serve or a commit.
 - The per-lane scalars (free capacity, clocks, counters, Kahan sums) and a
   heap of the outstanding fetches live on the host, so the commit check
   ``min_complete <= t`` costs no sync.
@@ -52,7 +53,7 @@ import torch
 from .._device import resolve_device
 from ..kernels import ranking_score as _rs
 from ..kernels import ref as _ref
-from ..kernels.lane_scatter import lane_scatter_set
+from ..kernels.lane_scatter import lane_scatter_batch
 from . import prng
 from .distributions import Exponential
 from .ranking import (EPS, POLICIES, PolicyParams, _f32, epi_stochastic_vacdh,
@@ -152,8 +153,8 @@ class _Engine:
         self.p = params
         self.estimate_z = estimate_z
         self.mode = score_mode
-        self._lane_write = (_ref.lane_scatter_set_ref if score_mode == "ref"
-                            else lane_scatter_set)
+        self._lane_write = (_ref.lane_scatter_batch_ref
+                            if score_mode == "ref" else lane_scatter_batch)
         self.n = trace.n_objects
         self.top = min(EVICT_TOP if evict_top is None else int(evict_top),
                        self.n)
@@ -212,36 +213,17 @@ class _Engine:
 
     def _scatter(self, writes):
         """Lane-scatter writes ``(x [R, N], idx [R], val [R], valid [R] or
-        None)``: one host-to-device copy for all, one launch each."""
-        parts = []
-        for x, idx, val, valid in writes:
-            parts.append(np.asarray(idx, np.int32))
-            parts.append(np.asarray(val, np.float32).view(np.int32)
-                         if x.dtype == torch.float32
-                         else np.asarray(val, np.int32))
-            if valid is not None:
-                parts.append(np.asarray(valid, np.int32))
-        buf = torch.from_numpy(np.concatenate(parts))
-        if self.dev.type == "cuda":
-            buf = buf.pin_memory().to(self.dev, non_blocking=True)
-        off = 0
-        for x, idx, val, valid in writes:
-            r = len(idx)
-            d_idx, d_val = buf[off:off + r], buf[off + r:off + 2 * r]
-            off += 2 * r
-            d_val = d_val.view(torch.float32) if x.dtype == torch.float32 \
-                else d_val != 0
-            d_valid = None
-            if valid is not None:
-                d_valid = buf[off:off + r] != 0
-                off += r
-            self._lane_write(x, d_idx, d_val, d_valid)
+        None, add)`` with host operands, in list order: one
+        ``lane_scatter_batch`` call (one launch on the card)."""
+        self._lane_write(writes)
 
     def _point_writes(self, idx, new_f, new_b):
         """All fields of every lane at ``idx[l]``: rows (field, lane)."""
         idx = np.asarray(idx, np.int32)
-        return [(self.rows_f, np.tile(idx, _NF), new_f.reshape(-1), None),
-                (self.rows_b, np.tile(idx, 2), new_b.reshape(-1), None)]
+        return [(self.rows_f, np.tile(idx, _NF), new_f.reshape(-1), None,
+                 False),
+                (self.rows_b, np.tile(idx, 2), new_b.reshape(-1), None,
+                 False)]
 
     # --- scoring ----------------------------------------------------------
     def _kernelable(self, li: int) -> bool:
@@ -375,7 +357,8 @@ class _Engine:
             v = o_idx[:, k]
             e = evict(act, v, o_val[:, k])
             if e.any():
-                evictions.append((self.cached, v, np.zeros(L, bool), e))
+                evictions.append((self.cached, v, np.zeros(L, bool), e,
+                                  False))
 
         # phase 2: per-eviction argmin, when one admission needs more
         # victims than the order holds (rare)
@@ -400,12 +383,14 @@ class _Engine:
             vv[lanes] = back[:, 1].view(np.float32)
             e = evict(act, v, vv)
             if e.any():
-                evictions.append((self.cached, v, np.zeros(L, bool), e))
+                evictions.append((self.cached, v, np.zeros(L, bool), e,
+                                  False))
 
         # --- admission --------------------------------------------------------
         do_admit = due & admit_ok & ok & (free >= s_j)
         if do_admit.any():
-            evictions.append((self.cached, j, np.ones(L, bool), do_admit))
+            evictions.append((self.cached, j, np.ones(L, bool), do_admit,
+                              False))
         if evictions:
             self._scatter(evictions)
         free = np.where(do_admit, free - s_j, free)

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
 - :mod:`ranking_score`    eq.-16 scores + victim selection (``csrc/ranking_score.cu``)
-- :mod:`lane_scatter`     per-lane point writes into ``[L, N]`` state (``csrc/lane_scatter.cu``)
+- :mod:`lane_scatter`     per-lane point writes into ``[L, N]`` state; a batch of them in one launch (``csrc/lane_scatter.cu``)
 - :mod:`flash_attention`  prefill attention (``csrc/flash_attention.cu``)
 - :mod:`decode_attention` one-token attention over a KV cache (``csrc/decode_attention.cu``)
 - :mod:`gla_chunk`        chunked gated linear attention for mLSTM / Mamba heads (``csrc/gla_chunk.cu``)
@@ -10,7 +10,8 @@
 """
 from . import (decode_attention, flash_attention, gla_chunk, lane_scatter,
                ranking_score)
-from .lane_scatter import lane_scatter_add, lane_scatter_set
+from .lane_scatter import (lane_scatter_add, lane_scatter_batch,
+                           lane_scatter_set)
 from .ranking_score import ranking_scores, ranking_victim_order
 
 _COUNTERS = (ranking_score.launches, lane_scatter.launches,
@@ -32,5 +33,6 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
-__all__ = ["lane_scatter_add", "lane_scatter_set", "ranking_scores",
-           "ranking_victim_order", "launch_counts", "reset_launch_counts"]
+__all__ = ["lane_scatter_add", "lane_scatter_batch", "lane_scatter_set",
+           "ranking_scores", "ranking_victim_order", "launch_counts",
+           "reset_launch_counts"]

@@ -32,12 +32,11 @@ _F32 = ctypes.c_float
 # C entry points: name -> argtypes.  Every one returns cudaGetLastError().
 SIGNATURES = {
     "ranking_score": {
-        "rank_select_scores": [_P, _P, _P, _P, _P, _F32, _I64, _INT, _P, _P,
-                               _P, _P],
-        "merge_candidates": [_P, _P, _I64, _INT, _P, _P, _P],
+        "rank_select": [_P] * 5 + [_F32, _I64, _INT] + [_P] * 6,
     },
     "lane_scatter": {
         "lane_scatter": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _P],
+        "lane_scatter_batch": [_P, _INT, _P],
     },
     "flash_attention": {
         "flash_attention": [_P] * 6 + [_INT] * 6 + [_I64] * 9

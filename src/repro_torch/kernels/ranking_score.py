@@ -1,5 +1,6 @@
 """Eq.-16 ranking kernels: scores for the whole object table plus the masked
-victim selection, in one pass over the inputs (``csrc/ranking_score.cu``).
+victim selection, in one pass over the inputs and one launch
+(``csrc/ranking_score.cu``).
 
 ``ranking_victim_order`` returns the scores and the ``top`` lowest-ranked
 cached objects in ascending ``(score, index)`` order; ``ranking_scores``
@@ -18,10 +19,15 @@ import torch
 from . import _build
 from .ref import ranking_scores_ref, ranking_victim_order_ref
 
-TILE = 1024          # elements per CTA in the CUDA kernel
+TILE = 4096          # elements per CTA in the CUDA kernel
+MAX_TOP = 1024       # the longest victim order the kernel emits
 
 # Kernel launches, one per wrapper call that launched on the card.
 launches = {"ranking_victim_order": 0, "ranking_scores": 0}
+
+# The cross-tile merge tickets, one int by (device, stream): zero between
+# launches (the last CTA of a launch sets it back to 0).
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _check(lam, z, resid, sizes, cached):
@@ -41,25 +47,28 @@ def _check(lam, z, resid, sizes, cached):
 
 
 def _launch(lam, z, resid, sizes, cached, omega, top, dev):
-    """Scores [N] plus the merged ``top`` candidates (vals, idx)."""
+    """Scores [N] plus the ``top`` least masked keys (idx, vals), from one
+    launch."""
     n = lam.shape[0]
     args = [x.contiguous() for x in (lam, z, resid, sizes, cached)]
-    grid = -(-n // TILE)
     with torch.cuda.device(dev):
         lib = _build.load("ranking_score")
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket = _tickets.get((dev.index, stream))
+        if ticket is None:
+            ticket = _tickets[(dev.index, stream)] = torch.zeros(
+                1, dtype=torch.int32, device=dev)
         scores = torch.empty(n, dtype=torch.float32, device=dev)
-        cand_v = torch.empty(grid * top, dtype=torch.float32, device=dev)
-        cand_i = torch.empty(grid * top, dtype=torch.int32, device=dev)
+        # merge scratch: 2 * max(top, 8) keys (of two int32) a tile bound
+        # every merge level of either selection path
+        cand = torch.empty(4 * max(top, 8) * -(-n // TILE),
+                           dtype=torch.int32, device=dev)
         vals = torch.empty(top, dtype=torch.float32, device=dev)
         idx = torch.empty(top, dtype=torch.int32, device=dev)
-        _build.check(lib.rank_select_scores(
+        _build.check(lib.rank_select(
             *(a.data_ptr() for a in args), float(omega), n, top,
-            scores.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), stream),
-            "rank_select_scores")
-        _build.check(lib.merge_candidates(
-            cand_v.data_ptr(), cand_i.data_ptr(), grid * top, top,
-            vals.data_ptr(), idx.data_ptr(), stream), "merge_candidates")
+            scores.data_ptr(), cand.data_ptr(), ticket.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), stream), "rank_select")
     return scores, idx, vals
 
 
@@ -71,13 +80,12 @@ def ranking_victim_order(lam, z, resid, sizes, cached, *, omega=1.0,
     idx i32[top], vals f32[top])``: the ``top`` lowest-scored cached
     objects in ascending ``(score, index)`` order, continued by +inf
     sentinels (uncached objects, lowest index first) once the cache runs
-    out.  Scores at or above 3.4e38 count as +inf.  ``top`` above the
-    kernel's tile of 1024 raises (a tile could then hold more of the
-    global order than it emits)."""
+    out.  Scores at or above 3.4e38 count as +inf.  ``top`` above
+    :data:`MAX_TOP` (1024) raises."""
     n, dev = _check(lam, z, resid, sizes, cached)
     top = max(1, min(int(top), n))
-    if top > TILE:
-        raise ValueError(f"top={top} must be <= the tile, {TILE}")
+    if top > MAX_TOP:
+        raise ValueError(f"top={top} must be <= {MAX_TOP}")
     if dev.type == "cpu":
         return ranking_victim_order_ref(lam, z, resid, sizes, cached,
                                         omega, top)

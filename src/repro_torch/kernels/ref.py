@@ -17,6 +17,7 @@ the CPU; on a CUDA tensor it launches the kernel.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Scores at or above this value count as +inf in the victim selection (the
@@ -98,6 +99,38 @@ def lane_scatter_add_ref(x, idx, val, valid=None):
         new = torch.where(valid, new, cur)
     x[lanes, idx] = new
     return x
+
+
+_HOST_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+                torch.bool: np.bool_}
+
+
+def lane_host_vals(dtype, val, rows: int) -> np.ndarray:
+    """A write's values as a host array of x's dtype, ``[rows]`` (a scalar
+    broadcasts): the one conversion both the batch kernel and its plain
+    version see."""
+    a = np.asarray(val)
+    if a.ndim == 0:
+        a = np.broadcast_to(a, (rows,))
+    if a.shape != (rows,):
+        raise ValueError(f"val must be [{rows}], got {list(a.shape)}")
+    return np.ascontiguousarray(a.astype(_HOST_DTYPES[dtype], copy=False))
+
+
+def lane_scatter_batch_ref(writes):
+    """:func:`lane_scatter_set_ref` / :func:`lane_scatter_add_ref` applied
+    in list order.  Each write is ``(x [R, N], idx [R], val [R], valid [R]
+    or None, add)`` with host (numpy) ``idx``, ``val`` and ``valid``; an
+    index outside [0, N) is skipped (masked off like an invalid row)."""
+    for x, idx, val, valid, add in writes:
+        rows, n = x.shape
+        idx = torch.from_numpy(np.asarray(idx, np.int64)).to(x.device)
+        ok = (idx >= 0) & (idx < n)
+        if valid is not None:
+            ok &= torch.from_numpy(np.asarray(valid, np.bool_)).to(x.device)
+        val = torch.from_numpy(lane_host_vals(x.dtype, val, rows))
+        fn = lane_scatter_add_ref if add else lane_scatter_set_ref
+        fn(x, torch.where(ok, idx, 0), val.to(x.device), ok)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,13 @@ For the two cells of chip_smoke.py (fig2: eq. 16 vs LRU as two lanes over
 100 objects; deploy: eq.-16 simulate over 2^20 objects), replays a window
 of requests and prints one JSON line per cell with:
 
-- wall seconds and requests per second (host clock, ending in a sync);
+- wall seconds and requests per second (host clock, ending in a sync),
+  device syncs and kernel launches per request;
 - device busy seconds: the sum of CUDA kernel and memcpy time in a
   ``torch.profiler`` trace of a second replay of the same window, and the
   idle share ``1 - busy / wall`` against the unprofiled wall time;
 - host seconds inside the replay engine's parts (gather = read-back,
-  scatter = host-to-device copy + lane-scatter launches, select = the
+  scatter = packing + the batched lane-scatter launch, select = the
   scoring pass + victim order, rest = host control flow), from wrappers
   around the engine's methods; they include the time spent waiting on
   the device at each read-back.
@@ -57,17 +58,20 @@ def profile_cell(label, run):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from .core import simulator
+    from .kernels import launch_counts, reset_launch_counts
 
     run()                                    # warm-up: builds, allocator
     acc = {}
     orig = {n: _timed(simulator._Engine, n, acc)
             for n in ("_gather", "_scatter", "_select")}
     try:
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         counts = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launched = launch_counts()
     finally:
         for n, fn in orig.items():
             setattr(simulator._Engine, n, fn)
@@ -87,6 +91,9 @@ def profile_cell(label, run):
     out = {"cell": label, "requests": counts["requests"],
            "wall_s": wall, "req_per_s": counts["requests"] / wall,
            "syncs_per_request": counts["syncs"] / counts["requests"],
+           "launches_per_request": {
+               k: v / counts["requests"]
+               for k, v in launched.items() if v},
            "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
            "host_s": parts,
            "top_device_ops": [{"op": k, "s": s, "count": c}

@@ -232,6 +232,40 @@ def test_counters_report_syncs():
     assert c["scoring_commits"] <= c["commits"]
 
 
+@pytest.mark.parametrize("fn", ["simulate", "latency_improvement"])
+@pytest.mark.parametrize("use_kernel", [True, "ref"])
+def test_engine_scatter_is_one_batch_call(fn, use_kernel, monkeypatch):
+    """Each ``_Engine._scatter`` hands its whole list of writes to one
+    ``lane_scatter_batch`` call (``"ref"`` to its plain version instead):
+    one a serve, one for a commit's point writes, one for its evictions and
+    admission.  On the CPU nothing launches."""
+    from repro_torch.core import simulator
+    from repro_torch.kernels import lane_scatter as ls
+    from repro_torch.kernels import launch_counts
+    batches = []
+    orig = simulator._Engine._scatter
+
+    def counting(self, writes):
+        batches.append(len(writes))
+        return orig(self, writes)
+
+    monkeypatch.setattr(simulator._Engine, "_scatter", counting)
+    trace, _ = _reference(True)
+    calls0, c = ls.calls["lane_scatter_batch"], {}
+    if fn == "simulate":
+        simulate(trace, CAP, "stoch_vacdh", estimate_z=True,
+                 use_kernel=use_kernel, device="cpu", counters=c)
+    else:
+        latency_improvement(trace, CAP, "stoch_vacdh", "lru",
+                            estimate_z=True, use_kernel=use_kernel,
+                            device="cpu", counters=c)
+    calls = ls.calls["lane_scatter_batch"] - calls0
+    assert calls == (len(batches) if use_kernel is True else 0)
+    assert len(batches) >= c["requests"] + c["commits"]
+    assert max(batches) >= 3           # evictions + admission in one call
+    assert launch_counts()["lane_scatter"] == 0
+
+
 def test_synthetic_generator_statistics():
     spec = SyntheticSpec(n_objects=50, n_requests=20_000, zipf_alpha=0.9,
                          rate=2000.0)

@@ -48,10 +48,13 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 6. the ``gla_chunk`` kernel against its plain version on the card over
    (dk, dv) in (16, 128), (512, 512), (64, 64), (16, 32), chunks of 16,
    64 and 256 (one and three of them), normalised or not, zero or given
-   initial state, contiguous or strided q and k, f32 and bf16, and the
-   main path's two shapes (y, S and n within atol 1e-4 + rtol 1e-3, bf16
-   y within one more bf16 ulp); then its times at xLSTM-350M's and
-   Hymba-1.5B's prefill shapes beside the plain version;
+   initial state, contiguous or strided q and k, f32 (the CUDA-core
+   kernel) and bf16 (the tensor-core route), and the main path's two
+   shapes (y, S and n within atol 1e-4 + rtol 1e-3, bf16 y within one
+   more bf16 ulp), the bf16 route's distance to ``ref.gla_chunk_split``
+   logged; then its times at xLSTM-350M's and Hymba-1.5B's prefill shapes
+   beside the plain version, its bound, its split-work and scratch floors
+   and the blocks of its grids;
 7. ``xlstm-350m`` (24 mLSTM blocks, d 1024, bf16) at full width behind
    the ``ContinuousBatcher`` as in phase 5, through the kernel (192
    ``gla_chunk`` launches) and its plain version, and the f32 check;
@@ -1042,7 +1045,13 @@ def gla_bound_ms(b, s, h, dk, dv, chunk, elt):
     normaliser out) at 3.35 TB/s and its operations on and below each
     chunk's diagonal (scores, A.v, the decayed state read, the state carry
     and the normaliser's two dot products) at the bf16 tensor rate, as
-    row 4 of the kernel table counts attention."""
+    row 4 of the kernel table counts attention.  Beside it, the bf16
+    route's own floors: its split work (q k^T once; A v, q S_in and
+    (k w)^T v twice, as bf16 hi + lo terms) at the bf16 rate, and its
+    bytes with the scratch round trips (the chunks' own f32 states, their
+    bf16 hi + lo entering states from chunk 1 on, and the f32 scores of the
+    64 x 64 tiles on and below the diagonal, each written once and read
+    once) at 3.35 TB/s."""
     nc = s // chunk
     tri = chunk * (chunk + 1) // 2
     flops = b * h * nc * (2 * tri * dk + 2 * tri * dv
@@ -1050,8 +1059,20 @@ def gla_bound_ms(b, s, h, dk, dv, chunk, elt):
     nbytes = (b * s * h * (2 * dk + 2 * dv) * elt + b * s * h * 2 * 4
               + b * h * (dk * dv + dk) * 4)
     by_ops = flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S
-    return (max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
-            "operations" if by_ops else "bytes", flops, nbytes)
+    split = b * h * nc * (2 * tri * dk + 2 * 2 * tri * dv
+                          + 2 * 2 * 2 * chunk * dk * dv
+                          + 2 * 2 * chunk * dk)
+    rt = -(-chunk // 64)
+    scratch = b * h * (nc * dk * dv * 4 + (nc - 1) * dk * dv * 4
+                       + nc * rt * (rt + 1) // 2 * 64 * 64 * 4)
+    design = nbytes + 2 * scratch
+    return dict(bound_ms=max(flops / BF16_FLOPS,
+                             nbytes / HBM_BYTES_PER_S) * 1e3,
+                bound_by="operations" if by_ops else "bytes", flops=flops,
+                bytes=nbytes, split_flops=split,
+                split_ms=split / BF16_FLOPS * 1e3, design_bytes=design,
+                design_ms=max(split / BF16_FLOPS,
+                              design / HBM_BYTES_PER_S) * 1e3)
 
 
 def within(got, want, bf16: bool) -> float:
@@ -1069,15 +1090,18 @@ def within(got, want, bf16: bool) -> float:
 
 
 def phase_gla() -> dict:
-    """gla_chunk against its plain version on the card over the sweep;
-    timings at xLSTM-350M's and Hymba-1.5B's prefill shapes."""
+    """gla_chunk against its plain version on the card over the sweep, and
+    its bf16 route's distance to ``ref.gla_chunk_split`` (the emulation of
+    its rounding); timings at xLSTM-350M's and Hymba-1.5B's prefill
+    shapes."""
     import torch
+    from repro_torch.kernels import gla_chunk as gla_mod
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gla_chunk import gla_chunk
+    gla_chunk = gla_mod.gla_chunk
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(6)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    worst = {"err": 0.0, "f32": 0.0, "bf16": 0.0}
+    worst = {"err": 0.0, "f32": 0.0, "bf16": 0.0, "split": 0.0}
 
     def check(args, st, chunk, normalize, dt, what):
         y, (S, n) = gla_chunk(*args, chunk=chunk, normalize=normalize,
@@ -1095,6 +1119,12 @@ def phase_gla() -> dict:
         worst["err"] = max(worst["err"], *(float((a.float() - b).abs().max())
                                           for a, b in ((y, ry.float()),
                                                        (S, rS), (n, rn))))
+        if dt == "bf16":
+            ey, (eS, en) = ref.gla_chunk_split(*args, chunk=chunk,
+                                               normalize=normalize,
+                                               init_state=st)
+            worst["split"] = max(worst["split"], within(y, ey, True),
+                                 within(S, eS, False), within(n, en, False))
 
     cases = 0
     for dt, tdt in dts.items():
@@ -1127,24 +1157,30 @@ def phase_gla() -> dict:
     log(f"phase 6: gla_chunk == plain within tolerance over {cases} cases "
         f"(f32: atol 1e-4 + rtol 1e-3, worst {worst['f32']:.3f} of it; "
         f"bf16 y: + 1 ulp, worst {worst['bf16']:.3f}); max |diff| "
-        f"{worst['err']:.3e}")
+        f"{worst['err']:.3e}; the bf16 route against ref.gla_chunk_split "
+        f"(its rounding), worst {worst['split']:.3f} of the same bound")
 
     out = {}
     for name, (b, s, h, dk, dv, _) in shapes.items():
         args, normalize = main_args[name]
-        bound, by, flops, nbytes = gla_bound_ms(b, s, h, dk, dv, 256, 2)
+        bd = gla_bound_ms(b, s, h, dk, dv, 256, 2)
         ms = time_ms(lambda: gla_chunk(*args, normalize=normalize), 20)
         plain = time_ms(lambda: ref.gla_chunk_plain(*args,
                                                     normalize=normalize), 10)
         log(f"phase 6: gla_chunk at {name}'s prefill shape (B={b}, S={s}, "
             f"H={h}, dk={dk}, dv={dv}, chunk 256, bf16): {ms * 1e3:.2f} us, "
-            f"plain {plain * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}: "
-            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-            f"{(b * h) * ((dv + 31) // 32)} blocks on "
+            f"plain {plain * 1e3:.2f} us, bound {bd['bound_ms'] * 1e3:.2f} "
+            f"us ({bd['bound_by']}: {bd['flops'] / 1e9:.3f} GFLOP, "
+            f"{bd['bytes'] / 1e6:.2f} MB); split work "
+            f"{bd['split_flops'] / 1e9:.3f} GFLOP, {bd['split_ms'] * 1e3:.2f}"
+            f" us; with the scratch {bd['design_bytes'] / 1e6:.2f} MB, "
+            f"{bd['design_ms'] * 1e3:.2f} us; blocks "
+            f"{gla_mod.tc_blocks(b, s, h, dk, dv, 256)} on "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} "
             f"SMs")
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=None, max_abs_err=worst["err"])
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bd["bound_ms"],
+                         bound_by=bd["bound_by"], library_ms=None,
+                         max_abs_err=worst["err"])
     return out
 
 

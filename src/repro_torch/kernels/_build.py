@@ -47,7 +47,7 @@ SIGNATURES = {
         + [_F32, _INT, _F32, _INT, _INT, _P],
     },
     "gla_chunk": {
-        "gla_chunk": [_P] * 10 + [_INT] * 6 + [_I64] * 9
+        "gla_chunk": [_P] * 14 + [_INT] * 6 + [_I64] * 9
         + [_F32, _INT, _INT, _P],
     },
 }

@@ -1,6 +1,8 @@
-// Shared device helpers of the attention kernels (flash_attention.cu,
-// decode_attention.cu): the mask, the f32 conversions, the tile loader and
-// the asynchronous copies.
+// Shared device helpers of the attention and GLA kernels
+// (flash_attention.cu, decode_attention.cu, gla_chunk.cu): the mask, the
+// f32 conversions, the tile loader, the asynchronous copies, and the
+// tensor-core pieces (ldmatrix, mma.sync m16n8k16 bf16, and the split of
+// an f32 operand into bf16 hi + lo terms).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,6 +110,51 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+using bf16 = __nv_bfloat16;
+
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i (.trans: each matrix transposed).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+// c += a (16x16, row) . b (16x8, col); bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kPTerms = 2;   // bf16 terms P is split into
+
+// Two f32 as kPTerms bf16 pairs (x in the low half): t[0] = bf16(x), each
+// later term the bf16 of what the earlier ones leave (exact in f32).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* t,
+                                           int stride) {
+#pragma unroll
+    for (int i = 0; i < kPTerms; ++i) {
+        __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+        t[i * stride] = *reinterpret_cast<uint32_t*>(&h);
+        const float2 f = __bfloat1622float2(h);
+        x -= f.x;
+        y -= f.y;
+    }
 }
 
 }  // namespace

@@ -248,55 +248,12 @@ constexpr int kMBQ = 16 * kMWarps;   // queries per block, 16 a warp
 constexpr int kMBK = 64;             // keys per tile
 constexpr int kQW = kMBQ / 32;       // warps that span the query tile
 
-using bf16 = __nv_bfloat16;
-
 // Shared memory: Q [kMBQ][D+8], K and V [2][kMBK][D+8] (bf16), the key
 // positions [2][kMBK], and 16 ints of block state.
 template <int D>
 constexpr size_t mma_smem_bytes() {
     return (size_t)(kMBQ + 4 * kMBK) * (D + 8) * sizeof(bf16) +
            (size_t)(2 * kMBK + 16) * sizeof(int);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  uint32_t addr) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-// c += a (16x16, row) . b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kPTerms = 2;   // bf16 terms P is split into
-
-// Two f32 as kPTerms bf16 pairs (x in the low half): t[0] = bf16(x), each
-// later term the bf16 of what the earlier ones leave (exact in f32).
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* t,
-                                           int stride) {
-#pragma unroll
-    for (int i = 0; i < kPTerms; ++i) {
-        __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-        t[i * stride] = *reinterpret_cast<uint32_t*>(&h);
-        const float2 f = __bfloat1622float2(h);
-        x -= f.x;
-        y -= f.y;
-    }
 }
 
 // e^x as 2^(x log2 e): one multiply and the hardware's exp2, where expf

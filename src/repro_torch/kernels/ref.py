@@ -12,7 +12,10 @@ with P split into two bf16 terms; per-split partial softmax states and
 their merge); only tests use them.
 ``gla_chunk_plain`` is the chunkwise form of the GLA kernel's arithmetic
 (the kernel sums the same f32 products in another order);
-``gla_chunk_ref`` is the sequential oracle, for tests.  Every kernel wrapper runs its plain version here for tensors that lie on
+``gla_chunk_ref`` is the sequential oracle and ``gla_chunk_split`` the
+emulation of the GLA kernel's tensor-core route (chunk-local states, a
+scan over chunks, f32 operands split into bf16 hi + lo), both for tests.
+Every kernel wrapper runs its plain version here for tensors that lie on
 the CPU; on a CUDA tensor it launches the kernel.
 """
 from __future__ import annotations
@@ -350,5 +353,80 @@ def gla_chunk_plain(q, k, v, log_f, log_i, *, chunk: int = 256,
         kw = kc * torch.exp(b_end[..., None] - bx + lx)[..., None]
         S = torch.exp(b_end)[..., None, None] * S + kw.transpose(-1, -2) @ vc
         n = torch.exp(b_end)[..., None] * n + kw.sum(-2)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(q.dtype)
+    return y, (S, n)
+
+
+def gla_chunk_split(q, k, v, log_f, log_i, *, chunk: int = 256,
+                    normalize: bool = True, init_state=None,
+                    split: bool = True):
+    """The order and rounding of ``csrc/gla_chunk.cu``'s tensor-core (bf16)
+    route, for tests.  Same arguments and result as :func:`gla_chunk_plain`.
+
+    1. Chunk-local states: ``dS_c = (k * w)^T v`` and ``dn_c = sum_s k_s
+       w_s`` with ``w_s = exp(bc_end - bc_s + li_s)``; ``k * w`` is formed
+       in f32 and split into bf16 ``hi + lo``, each term's product with v
+       summed in f32.
+    2. The scan: ``S_in[0] = S0`` (zeros when None), ``S_in[c+1] =
+       exp(bc_end_c) S_in[c] + dS_c``, the same for n, in f32.
+    3. Outputs: q and k as they are (bf16 values), the scale and the decays
+       as row factors after the products; ``A_ts = (q_t . k_s) g_ts`` for
+       s <= t, and ``S_in`` each split into ``hi + lo`` against bf16 v and
+       q; ``y = scale (exp(bc_t) q_t . S_in + sum_s A_ts v_s)``, divided by
+       ``max(|scale (sum_s A_ts + exp(bc_t) q_t . n_in)|, 1)`` when
+       normalising.
+
+    ``split=False`` keeps every operand in f32: the same decomposition
+    with no rounding of its own."""
+    b, s, h, dk = q.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    terms = _bf16_terms if split else (lambda x: (x, torch.zeros_like(x)))
+    heads = lambda x: x.float().permute(0, 2, 1, 3)              # (B,H,S,d)
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    li = log_i.float().permute(0, 2, 1)                          # (B,H,S)
+    bc = torch.cumsum(log_f.float().permute(0, 2, 1).reshape(
+        b, h, nc, chunk), dim=-1).reshape(b, h, s)
+    if init_state is None:
+        S = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
+        n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
+    else:
+        S, n = (x.float() for x in init_state)
+    chunks = [slice(c * chunk, (c + 1) * chunk) for c in range(nc)]
+    s_in, n_in = [], []
+    for sl in chunks:                                 # 1-2. states, scan
+        s_in.append(S)
+        n_in.append(n)
+        bx, lx = bc[:, :, sl], li[:, :, sl]
+        kw = kf[:, :, sl] * torch.exp(bx[..., -1:] - bx + lx)[..., None]
+        hi, lo = terms(kw)
+        vc = vf[:, :, sl]
+        ds = hi.transpose(-1, -2) @ vc + lo.transpose(-1, -2) @ vc
+        e = torch.exp(bx[..., -1])
+        S = e[..., None, None] * S + ds
+        n = e[..., None] * n + kw.sum(-2)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=q.device).tril()
+    scale = dk ** -0.5
+    ys = []
+    for sl, s0, n0 in zip(chunks, s_in, n_in):        # 3. outputs
+        qc, kc, vc, bx, lx = qf[:, :, sl], kf[:, :, sl], vf[:, :, sl], \
+            bc[:, :, sl], li[:, :, sl]
+        dec = torch.exp(bx)
+        sh, slo = terms(s0)
+        acc = dec[..., None] * (qc @ sh + qc @ slo)
+        gpos = bx[..., :, None] - bx[..., None, :] + lx[..., None, :]
+        A = (qc @ kc.transpose(-1, -2)) * torch.where(tri, torch.exp(gpos),
+                                                      0.0)
+        ah, al = terms(A)
+        y = scale * (acc + ah @ vc + al @ vc)
+        if normalize:
+            qn = dec * (qc @ n0[..., None])[..., 0]
+            den = torch.clamp(torch.abs(scale * (A.sum(-1) + qn)), min=1.0)
+            y = y / den[..., None]
+        ys.append(y)
     y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(q.dtype)
     return y, (S, n)

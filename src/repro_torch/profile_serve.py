@@ -35,13 +35,15 @@ PROMPT, DECODE = 2048, 32
 # the port's LM kernels, by their CUDA function names (every __global__
 # function of csrc/flash_attention.cu, decode_attention.cu, gla_chunk.cu)
 KERNELS = ("flash_kernel", "flash_mma_kernel", "decode_split_kernel",
-           "gla_kernel")
+           "gla_kernel", "gla_state_kernel", "gla_scan_kernel",
+           "gla_score_kernel", "gla_out_kernel")
 
 
 def is_port_kernel(op: str) -> bool:
     """Whether a profiler op name (``void (anonymous namespace)::name<...>
-    (...)``) is one of :data:`KERNELS`."""
-    return any(f"::{n}<" in op for n in KERNELS)
+    (...)``, or ``::name(...)`` for a kernel that is no template) is one of
+    :data:`KERNELS`."""
+    return any(f"::{n}<" in op or f"::{n}(" in op for n in KERNELS)
 
 
 def _run(params, cfg, tokens, n_decode):

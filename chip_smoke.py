@@ -66,6 +66,30 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    and through their plain versions (after an untimed warm-up of both),
    and the f32 check.
 
+9. the sweep grid: (a) fig2 at its driver's default size through
+   ``repro_torch.figures.fig2_synthetic.run`` (100 objects, 30,000
+   requests, Poisson and Pareto arrivals, C = 500 MB; the 11-policy
+   roster with the recency residual and the rate residual's three
+   policies, each with its LRU lane) through the kernels and, side by
+   side in a second process, through the plain versions, all four grids
+   bit for bit, the eq.-16
+   Poisson/recency improvement inside 3-30%, every policy's improvement
+   printed; (b) lru / vacdh / stoch_vacdh x omega {0.5, 1, 2} x capacity
+   {5%, 10%} of the touched footprint over phase 3's 2^20-object
+   universe (18 lanes, 943 MB of state) for ``GRID_REQUESTS`` = 5,000
+   requests (cut for the host-bound replay rate), kernels against plain
+   versions bit for bit, three lanes against single-lane ``simulate``
+   calls, with lane-requests/s and syncs per lane-request against the
+   18 one-lane runs' wall extrapolated from those three;
+10. streaming: ``realworld_raw`` (20,000 requests, cut from
+   fig_realworld's 1,000,000 for time; 200,000 keys, epoch times from
+   1.7e9 s) compacted as fig_realworld does (top 4096 + a pool of 512,
+   capacity 10% of the footprint) and replayed by ``simulate_stream``
+   (chunks of 4096, rebased) through the kernels and the plain versions
+   bit for bit; ``simulate_chunked`` (4096) against ``simulate`` on
+   phase 2's fig2 trace, and the chunked fig2 Poisson rate grid against
+   9(a)'s unchunked one.
+
 Each main-path run starts from zeroed launch counts, prints its
 lane-scatter launches per request, and must launch every kernel it
 reaches (the LM runs: exactly once a layer per prompt or per
@@ -73,8 +97,8 @@ decoded token); a run through the plain versions must launch none.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 before it come the ``kernels`` JSON line and the card's name and power
-limit as nvidia-smi gives them.  With no card it exits non-zero and prints
-no result.
+limit as nvidia-smi gives them, and each phase's seconds.  With no card
+it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -94,6 +118,7 @@ F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
+GRID_REQUESTS = 5_000         # phase 9b's replay, cut for the host-bound rate
 
 
 def log(*a):
@@ -455,7 +480,10 @@ def drive(label, fn, needs=()):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     lc = launch_counts()
-    log(f"{label}: {counts['requests'] / dt:.1f} req/s, "
+    lanes = (f"{counts['lane_requests'] / dt:.1f} lane-requests/s, "
+             f"{counts['syncs'] / counts['lane_requests']:.4f} syncs/"
+             f"lane-request, " if "lane_requests" in counts else "")
+    log(f"{label}: {dt:.2f} s, {counts['requests'] / dt:.1f} req/s, {lanes}"
         f"{counts['syncs'] / counts['requests']:.3f} syncs/request, "
         f"{counts['scoring_commits']} scoring commits, "
         f"{lc['lane_scatter'] / counts['requests']:.3f} lane_scatter "
@@ -1247,6 +1275,235 @@ def phase_hymba(launches: dict) -> None:
     check_f32(8, cfg, params, prompts)
 
 
+# --- phases 9-10: the sweep grid and the streaming replay --------------------
+def grid_arrays(g) -> dict:
+    """A SweepGrid's result fields as host numpy arrays."""
+    import dataclasses
+    return {f.name: getattr(g.result, f.name).cpu().numpy()
+            for f in dataclasses.fields(g.result)}
+
+
+def same_grid(a, b) -> bool:
+    """Every field of two SweepGrids' results (or their ``grid_arrays``),
+    bit for bit."""
+    import torch
+    fa, fb = (x if isinstance(x, dict) else grid_arrays(x) for x in (a, b))
+    return fa.keys() == fb.keys() and all(
+        bitwise_equal(torch.from_numpy(fa[k]), torch.from_numpy(fb[k]))
+        for k in fa)
+
+
+def fig2_plain(conn) -> None:
+    """9(a)'s run through the plain versions, in a process of its own:
+    sends back ("ok", its grids' ``grid_arrays``) or ("error", the
+    traceback that stopped it)."""
+    try:
+        from repro_torch.figures import fig2_synthetic
+        grids = []
+        drive("phase 9a: fig2_synthetic.run(use_kernel='ref')",
+              lambda c: fig2_synthetic.run(use_kernel="ref", counters=c,
+                                           grids=grids))
+        conn.send(("ok", [grid_arrays(g) for g in grids]))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def phase_grid_fig2(launches: dict, grids_out: dict) -> None:
+    """9(a): fig2 at the driver's default size through the figure driver,
+    the kernels' grids against the plain versions' bit for bit.  The two
+    runs go side by side, the plain one in a second process (both are
+    host-bound), so 9(a)'s rates are read with the host shared."""
+    import multiprocessing
+    from repro_torch.figures import fig2_synthetic
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=fig2_plain, args=(send,))
+    child.start()
+    send.close()
+    try:
+        kern = []
+        rows, _, lc = drive(
+            "phase 9a: fig2_synthetic.run(use_kernel=True)",
+            lambda c: fig2_synthetic.run(use_kernel=True, counters=c,
+                                         grids=kern),
+            ("ranking_victim_order", "lane_scatter"))
+        add_launches(launches, lc)
+        status, plain = recv.recv()
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+    if status != "ok":
+        raise AssertionError(f"phase 9a's plain run failed:\n{plain}")
+    if len(kern) != 4 or len(plain) != 4:
+        raise AssertionError(f"fig2 ran {len(kern)} / {len(plain)} grids, "
+                             f"not 4")
+    for a, b in zip(kern, plain):
+        if not same_grid(a, b):
+            raise AssertionError(f"fig2 grid {a.policies}: kernels "
+                                 f"{grid_arrays(a)} != plain {b}")
+    log(f"phase 9a: {len(plain)} grids (2 arrivals x recency roster / "
+        f"rate trio), kernels == plain bitwise in every lane")
+    for r in rows:
+        log(f"phase 9a: {r['arrival']:7s} resid={r['resid']:7s} "
+            f"{r['policy']:12s} improvement over LRU "
+            f"{r['improvement_vs_lru'] * 100:8.3f}%  hit ratio "
+            f"{r['hit_ratio']}")
+    ours = [r for r in rows if r["policy"] == "stoch_vacdh"
+            and r["arrival"] == "poisson" and r["resid"] == "recency"]
+    impr = ours[0]["improvement_vs_lru"]
+    if not 0.03 <= impr <= 0.30:
+        raise AssertionError(f"fig2 grid improvement {impr} outside 3-30%")
+    grids_out["fig2_rate_poisson"] = kern[1]
+
+
+def phase_grid_deploy(n_requests: int, launches: dict) -> None:
+    """9(b): lru / vacdh / stoch_vacdh x omega {0.5, 1, 2} x capacity
+    {5%, 10%} over the dense 2^20-object universe: 18 lanes."""
+    import torch
+    from repro_torch.core import PolicyParams, simulate, sweep_grid
+    from repro_torch.core.state import F32_FIELDS
+    from repro_torch.data.traces import SyntheticSpec, synthetic_trace
+
+    spec = SyntheticSpec(n_objects=N_DEPLOY, n_requests=n_requests,
+                         zipf_alpha=0.9, rate=2000.0, latency_base=0.005,
+                         latency_per_mb=2e-4, stochastic=True)
+    tr = synthetic_trace(torch.Generator().manual_seed(7), spec)
+    touched = torch.unique(tr.objs.long())
+    foot = float(tr.sizes[touched].sum())
+    caps = [0.05 * foot, 0.10 * foot]
+    omegas = (0.5, 1.0, 2.0)
+    params = [PolicyParams(omega=o, resid="recency") for o in omegas]
+    policies = ["lru", "vacdh", "stoch_vacdh"]
+    n_lanes = len(policies) * len(params) * len(caps)
+    state_mb = (len(F32_FIELDS) * 4 + 2) * N_DEPLOY * n_lanes / 1e6
+    log(f"phase 9b: {n_lanes} lanes ({policies} x omega {omegas} x "
+        f"capacity 5%/10% of {foot:.1f} MB) over {N_DEPLOY} objects, "
+        f"{state_mb:.1f} MB of state; {n_requests} requests (cut for the "
+        f"host-bound replay rate)")
+
+    def grid(mode):
+        return lambda c: sweep_grid(tr, caps, policies, params,
+                                    estimate_z=True, use_kernel=mode,
+                                    counters=c)
+
+    t0 = time.perf_counter()
+    kern, kc, lc = drive("phase 9b: sweep_grid(kernels)", grid(True),
+                         ("ranking_victim_order", "lane_scatter"))
+    grid_s = time.perf_counter() - t0
+    add_launches(launches, lc)
+    plain, pc, _ = drive("phase 9b: sweep_grid(plain versions)", grid("ref"))
+    if not same_grid(kern, plain):
+        raise AssertionError("18-lane grid: kernels != plain versions")
+    log("phase 9b: kernel grid == plain grid bitwise in all 18 lanes")
+    walls = []
+    for pol, pi, ci in (("stoch_vacdh", 1, 1), ("vacdh", 0, 0),
+                        ("lru", 2, 1)):
+        t0 = time.perf_counter()
+        one, _, lc = drive(
+            f"phase 9b: simulate({pol}, omega {omegas[pi]}, capacity "
+            f"{caps[ci]:.1f})",
+            lambda c, pol=pol, pi=pi, ci=ci: simulate(
+                tr, caps[ci], pol, params[pi], estimate_z=True,
+                use_kernel=True, counters=c),
+            ("lane_scatter",))
+        add_launches(launches, lc)
+        walls.append(time.perf_counter() - t0)
+        if not same_result(one, kern.point(0, policies.index(pol), pi, ci,
+                                           0)):
+            raise AssertionError(f"grid lane {pol} != single-lane simulate")
+    one_lane = statistics.mean(walls) * n_lanes
+    log(f"phase 9b: grid lanes == single-lane simulate bitwise (stoch_vacdh, "
+        f"vacdh, lru); grid {grid_s:.2f} s for {n_lanes} lanes "
+        f"({kc['lane_requests'] / grid_s:.1f} lane-requests/s, "
+        f"{kc['syncs'] / kc['lane_requests']:.4f} syncs/lane-request, "
+        f"{kc['scoring_commits']} scoring commits) against "
+        f"{one_lane:.2f} s as {n_lanes} one-lane runs (extrapolated from "
+        f"the three single-lane runs' mean, {statistics.mean(walls):.2f} s: "
+        f"{n_requests / statistics.mean(walls):.1f} lane-requests/s)")
+
+
+def phase_stream(launches: dict, grids: dict) -> None:
+    """10: the epoch-time stream, rebased, kernels against plain; chunked
+    replays against whole ones."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PolicyParams, simulate, simulate_chunked,
+                                  simulate_stream, sweep_grid)
+    from repro_torch.data.traces import (RealWorldSpec, SyntheticSpec,
+                                         compact_requests, realworld_raw,
+                                         synthetic_trace)
+
+    n_req = 20_000
+    raw = realworld_raw(RealWorldSpec(n_requests=n_req, n_keys=200_000,
+                                      seed=0))
+    stream, stats = compact_requests(raw, top_k=4096, n_recycle=512)
+    cap = 0.1 * float(stream.sizes.sum())
+    log(f"phase 10: stream of {stream.n_requests} requests (cut from "
+        f"fig_realworld's 1,000,000 for time) from t = "
+        f"{stream.times[0]:.1f} s, "
+        f"{stats.n_unique} keys -> {stats.n_objects} objects (tail mass "
+        f"{stats.tail_mass:.3f}), capacity {cap:.1f} MB, chunks of 4096")
+    params = PolicyParams(omega=1.0)
+    runs = {}
+    for mode, needs in ((True, ("ranking_victim_order", "lane_scatter")),
+                        ("ref", ())):
+        runs[mode] = drive(
+            f"phase 10: simulate_stream(use_kernel={mode!r}, rebase=True)",
+            lambda c, mode=mode: simulate_stream(
+                stream, cap, "stoch_vacdh", params, estimate_z=True,
+                use_kernel=mode, chunk_size=4096, rebase=True, counters=c),
+            needs)
+        if mode is True:
+            add_launches(launches, runs[mode][2])
+    if not same_result(runs[True][0], runs["ref"][0]):
+        raise AssertionError(f"stream: kernels {runs[True][0]} != plain "
+                             f"{runs['ref'][0]}")
+    r = runs[True][0]
+    if int(r.n_hits + r.n_delayed + r.n_misses) != stream.n_requests or \
+            not bool(
+            torch.isfinite(r.total_latency)):
+        raise AssertionError(f"stream result {r}")
+    log(f"phase 10: stream kernels == plain bitwise: latency "
+        f"{float(r.total_latency)}, hit ratio {float(r.hit_ratio):.4f}")
+
+    spec = SyntheticSpec(n_objects=100, n_requests=30_000, zipf_alpha=0.9,
+                         rate=2000.0, latency_base=0.005,
+                         latency_per_mb=2e-4, stochastic=True)
+    tr = synthetic_trace(torch.Generator().manual_seed(0), spec)
+    p2 = PolicyParams(omega=1.0, resid="recency")
+    whole, _, lc = drive("phase 10: fig2 simulate(kernels)", lambda c:
+                         simulate(tr, 500.0, "stoch_vacdh", p2,
+                                  estimate_z=True, counters=c),
+                         ("ranking_victim_order", "lane_scatter"))
+    add_launches(launches, lc)
+    chunked, _, lc = drive("phase 10: fig2 simulate_chunked(4096)", lambda c:
+                           simulate_chunked(tr, 500.0, "stoch_vacdh", p2,
+                                            estimate_z=True, chunk_size=4096,
+                                            counters=c),
+                           ("ranking_victim_order", "lane_scatter"))
+    add_launches(launches, lc)
+    if not same_result(whole, chunked):
+        raise AssertionError(f"simulate_chunked {chunked} != {whole}")
+    g0 = grids["fig2_rate_poisson"]
+    g1, _, lc = drive(
+        "phase 10: fig2 rate grid, sweep_grid(chunk_size=4096)",
+        lambda c: sweep_grid(tr, 500.0, list(g0.policies), list(g0.params),
+                             estimate_z=True, chunk_size=4096, counters=c),
+        ("ranking_victim_order", "lane_scatter"))
+    add_launches(launches, lc)
+    if not same_grid(g0, g1):
+        raise AssertionError("chunked grid != unchunked grid")
+    log(f"phase 10: simulate_chunked == simulate and the chunked "
+        f"{np.prod(g0.result.total_latency.shape)}-lane grid == the "
+        f"unchunked grid, bit for bit")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=20_000,
@@ -1265,18 +1522,31 @@ def main() -> int:
     libs = _build.build_all()
     log(f"phase 0: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    timings = phase_kernels()
-    timings.update(phase_attention())
-    launches = {}
-    phase_paper(launches)
-    phase_deploy(args.requests, launches)
-    phase_serve(5, SERVE_ARCH, launches, ("flash_attention",),
-                ("decode_attention",))
-    gla = phase_gla()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {phase_s[name]} s")
+        return out
+
+    timings = timed("1", phase_kernels)
+    timings.update(timed("4", phase_attention))
+    launches, grids = {}, {}
+    timed("2", phase_paper, launches)
+    timed("3", phase_deploy, args.requests, launches)
+    timed("5", phase_serve, 5, SERVE_ARCH, launches, ("flash_attention",),
+          ("decode_attention",))
+    gla = timed("6", phase_gla)
     timings["gla_chunk"] = gla["xlstm-350m"]
-    phase_serve(7, "xlstm-350m", launches, ("gla_chunk",), ())
-    phase_hymba(launches)
-    log(f"launches over the main-path runs of phases 2-3, 5, 7 and 8: "
+    timed("7", phase_serve, 7, "xlstm-350m", launches, ("gla_chunk",), ())
+    timed("8", phase_hymba, launches)
+    timed("9a", phase_grid_fig2, launches, grids)
+    timed("9b", phase_grid_deploy, GRID_REQUESTS, launches)
+    timed("10", phase_stream, launches, grids)
+    log(f"seconds by phase: {phase_s}")
+    log(f"launches over the main-path runs of phases 2-3 and 5-10: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

@@ -5,8 +5,11 @@
                        Erlang / Hyperexponential / Monte Carlo)
 - :mod:`ranking`       eq. 16 ranking + every §5.1 baseline
 - :mod:`state`         dense ``[L, N]`` simulator state
-- :mod:`trace`         trace schema
-- :mod:`simulator`     ``simulate`` / ``latency_improvement``
+- :mod:`trace`         trace schema, host request streams
+- :mod:`simulator`     ``simulate`` / ``latency_improvement`` /
+                       ``simulate_stream`` / ``simulate_chunked``
+- :mod:`sweep`         ``sweep_grid`` over traces x policies x params x
+                       capacities x seeds
 """
 from .delay_stats import (agg_mean_from_moments, agg_var_from_moments,
                           det_mean, det_var, stoch_mean, stoch_std, stoch_var)
@@ -16,9 +19,12 @@ from .distributions import (DISTRIBUTIONS, Deterministic, Erlang, Exponential,
 from .ranking import (BASELINES, OURS, POLICIES, Policy, PolicyParams,
                       Substrate, make_substrate)
 from .simulator import (EVICT_TOP, SimResult, latency_improvement,
-                        resolve_score_mode, simulate)
+                        resolve_chunk_size, resolve_score_mode, simulate,
+                        simulate_chunked, simulate_stream)
 from .state import ObjStats, SimState, init_state
-from .trace import Trace, make_trace
+from .sweep import SweepGrid, sweep_grid
+from .trace import (RequestStream, Trace, auto_chunk_size, make_trace,
+                    stream_of_trace, trace_of_stream)
 
 __all__ = [
     "agg_mean_from_moments", "agg_var_from_moments",
@@ -27,6 +33,9 @@ __all__ = [
     "Hyperexponential", "MissLatency", "MonteCarlo", "make_distribution",
     "BASELINES", "OURS", "POLICIES", "Policy", "PolicyParams",
     "Substrate", "make_substrate",
-    "EVICT_TOP", "SimResult", "latency_improvement", "resolve_score_mode",
-    "simulate", "ObjStats", "SimState", "init_state", "Trace", "make_trace",
+    "EVICT_TOP", "SimResult", "latency_improvement", "resolve_chunk_size",
+    "resolve_score_mode", "simulate", "simulate_chunked", "simulate_stream",
+    "ObjStats", "SimState", "init_state", "SweepGrid", "sweep_grid",
+    "RequestStream", "Trace", "auto_chunk_size", "make_trace",
+    "stream_of_trace", "trace_of_stream",
 ]

@@ -49,3 +49,10 @@ def uniform(key) -> np.float32:
     b0, b1 = threefry2x32(int(key[0]), int(key[1]), 0, 0)
     bits = np.uint32(((b0 ^ b1) >> 9) | 0x3F800000)
     return max(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))
+
+
+def key_data(seed: int) -> tuple[int, int]:
+    """The key data of ``jax.random.key(seed)`` (threefry): the seed's high
+    and low 32-bit words."""
+    seed = int(seed)
+    return (seed >> 32) & _M32, seed & _M32

@@ -36,8 +36,15 @@ Where the work runs:
 
 Lanes run in lockstep: a lane with no due commit writes back its own bits
 and keeps its scalars, so each lane's result equals a single-lane run bit
-for bit.  ``latency_improvement`` runs the policy and its baseline as two
-lanes of one state.
+for bit.  Each lane has its own policy, capacity, :class:`PolicyParams`
+and coin key; all lanes of an engine replay one request sequence.
+``latency_improvement`` runs the policy and its baseline as two lanes of
+one state, :func:`repro_torch.core.sweep.sweep_grid` a whole grid.
+
+The engine takes its requests from host arrays, a chunk at a time:
+:func:`simulate_stream` feeds a host :class:`RequestStream` chunk by chunk
+(its f64 times rebased to f32 offsets from each chunk's start), so the
+request axis is never uploaded to the card.
 
 Host arithmetic uses numpy f32 arrays with f32 constants; every operation
 rounds once, in the reference's order (numpy never fuses a multiply-add).
@@ -58,8 +65,8 @@ from . import prng
 from .distributions import Exponential
 from .ranking import (EPS, POLICIES, PolicyParams, _f32, epi_stochastic_vacdh,
                       make_substrate)
-from .state import FIELD, F32_FIELDS, init_state, kahan_add
-from .trace import Trace
+from .state import FIELD, F32_FIELDS, init_state, kahan_add, shift_times
+from .trace import RequestStream, Trace, auto_chunk_size, stream_of_trace
 
 # How many victims the rank-and-select pass pre-orders per commit; 0 scores
 # the row only and evicts through the per-eviction argmin loop alone.
@@ -142,32 +149,43 @@ def _agg_mean_hat(agg_sum, agg_cnt, z_est):
 
 
 class _Engine:
-    """One simulation of ``L`` lanes over one trace (see the module doc)."""
+    """One simulation of ``L`` lanes over one object universe (see the
+    module doc).  ``sizes`` and ``z_mean`` are ``[N]`` tensors on the
+    engine's device; lane ``l`` runs ``policies[l]`` at ``capacities[l]``
+    under ``params[l]`` with coin key ``keys[l]``."""
 
-    def __init__(self, trace: Trace, capacity: float, policies: tuple,
-                 params: PolicyParams, estimate_z: bool, score_mode: str,
-                 evict_top, key):
-        self.dev = trace.device
+    def __init__(self, sizes: torch.Tensor, z_mean: torch.Tensor,
+                 capacities, policies: tuple, params: tuple,
+                 keys: tuple, estimate_z: bool, score_mode: str,
+                 evict_top):
+        self.dev = sizes.device
         self.L = len(policies)
         self.pols = [POLICIES[n] for n in policies]
-        self.p = params
+        self.params = tuple(params)
         self.estimate_z = estimate_z
         self.mode = score_mode
         self._lane_write = (_ref.lane_scatter_batch_ref
                             if score_mode == "ref" else lane_scatter_batch)
-        self.n = trace.n_objects
+        self.n = sizes.shape[0]
         self.top = min(EVICT_TOP if evict_top is None else int(evict_top),
                        self.n)
         # each AdaptSize lane's coin key, split at every commit of that lane
-        self.keys = [tuple(int(k) for k in key)] * self.L
-        self.trace = trace
-        self.sizes = trace.sizes
-        self.sizes_np = trace.sizes.cpu().numpy()
-        st = init_state(self.n, capacity, trace.z_mean, self.L, self.dev)
+        self.keys = [tuple(int(x) for x in k) for k in keys]
+        self.sizes = sizes
+        self.sizes_np = sizes.cpu().numpy()
+        st = init_state(self.n, capacities, z_mean, self.L, self.dev)
         self.st = st
         self.rows_f = st.values.view(_NF * self.L, self.n)
         self.rows_b = st.flags.view(-1, self.n)
         self.cached = st.flags[0]
+        # each lane's fields as [N] views (the state is updated in place)
+        self.lane_obj = [st.obj.lane(li) for li in range(self.L)]
+        # the lane ids, and a host buffer (pinned on a card) for the
+        # indices of a commit's gather and of its scoring pass; every use
+        # ends in a read-back before the next one refills it
+        self._lanes = torch.arange(self.L, device=self.dev)
+        self._hidx = torch.empty(2 * self.L, dtype=torch.int64,
+                                 pin_memory=self.dev.type == "cuda")
         # host scalars: numpy views of the state's [L] CPU tensors
         self.free = st.free.numpy()
         self.gd_clock = st.gd_clock.numpy()
@@ -183,10 +201,12 @@ class _Engine:
         self.gd_rate = mask(lambda q: q.gd_cost == "agg_rate")
         self.adapt = mask(lambda q: q.admission == "adaptsize")
         self.cmp_adm = mask(lambda q: q.compare_admission)
-        self.cold_rate = _F(params.cold_rate)
-        self.gap_alpha = _F(params.gap_alpha)
-        self.adapt_c = _F(params.adapt_c)
+        lane = lambda f: np.array([f(p) for p in self.params], np.float32)
+        self.cold_rate = lane(lambda p: p.cold_rate)
+        self.gap_alpha = lane(lambda p: p.gap_alpha)
+        self.adapt_c = lane(lambda p: p.adapt_c)
         self.heaps = [[] for _ in range(self.L)]
+        self.requests = 0
         self.syncs = 0
         self.commits = 0
         self.scored = 0
@@ -198,16 +218,18 @@ class _Engine:
         return t.cpu().numpy()
 
     def _gather(self, idx):
-        """Every field at object ``idx[l]`` of each lane l: f32 [12, L] and
-        bool [2, L] host arrays, in one read-back."""
-        if all(int(j) == int(idx[0]) for j in idx):
-            v = self.st.values[:, :, int(idx[0])]
-            f = self.st.flags[:, :, int(idx[0])]
+        """Every field at object ``idx[l]`` of each lane l (``idx`` an int
+        for one object in every lane): f32 [12, L] and bool [2, L] host
+        arrays, in one read-back."""
+        if np.ndim(idx) == 0 or (idx == idx[0]).all():
+            i = int(idx) if np.ndim(idx) == 0 else int(idx[0])
+            v = self.st.values[:, :, i]
+            f = self.st.flags[:, :, i]
         else:
-            v = torch.stack([self.st.values[:, l, int(j)]
-                             for l, j in enumerate(idx)], dim=1)
-            f = torch.stack([self.st.flags[:, l, int(j)]
-                             for l, j in enumerate(idx)], dim=1)
+            self._hidx.numpy()[:self.L] = idx
+            j = self._hidx[:self.L].to(self.dev, non_blocking=True)
+            v = self.st.values[:, self._lanes, j]
+            f = self.st.flags[:, self._lanes, j]
         a = self._read(torch.cat([v, f.to(torch.float32)]))
         return a[:_NF].copy(), a[_NF:] > 0.5
 
@@ -219,7 +241,7 @@ class _Engine:
 
     def _point_writes(self, idx, new_f, new_b):
         """All fields of every lane at ``idx[l]``: rows (field, lane)."""
-        idx = np.asarray(idx, np.int32)
+        idx = np.broadcast_to(np.asarray(idx, np.int32), (self.L,))
         return [(self.rows_f, np.tile(idx, _NF), new_f.reshape(-1), None,
                  False),
                 (self.rows_b, np.tile(idx, 2), new_b.reshape(-1), None,
@@ -229,30 +251,70 @@ class _Engine:
     def _kernelable(self, li: int) -> bool:
         return (self.mode != "rank"
                 and self.pols[li].epilogue is epi_stochastic_vacdh
-                and isinstance(self.p.dist, Exponential))
+                and isinstance(self.params[li].dist, Exponential))
 
-    def _select(self, li: int, t: float, top: int):
-        """Lane ``li``'s score row and victim order ``(ranks [N], idx
-        [top], vals [top])`` at time ``t`` (device tensors)."""
-        o = self.st.obj.lane(li)
-        sub = make_substrate(o, self.sizes, t, self.p)
-        omega = _f32(self.p.omega)
-        if self._kernelable(li):
+    def _select(self, lanes, t_c, j, top: int):
+        """Score each lane ``li`` of ``lanes`` at its commit time
+        ``t_c[li]``; returns its score row ``ranks[li]`` (device [N]) and
+        one int32 device tensor whose row ``k`` holds, for lane
+        ``order[k]``, the score of its committing object ``j[li]`` and its
+        ascending victim order's ``top`` values and indices.
+
+        Eq.-16 kernel lanes get the order from the kernel (or its plain
+        version); the other lanes' rows are stacked and ordered in one
+        masked stable sort, row by row the order of
+        ``ref.victim_order_ref``."""
+        ranks, kern_rows, plain = {}, [], []
+        for li in lanes:
+            p = self.params[li]
+            o = self.lane_obj[li]
+            sub = make_substrate(o, self.sizes, float(t_c[li]), p)
+            if not self._kernelable(li):
+                ranks[li] = self.pols[li].epilogue(sub, p)
+                plain.append(li)
+                continue
             args = (sub.lam, sub.z_est, sub.resid, self.sizes, o.cached)
+            omega = _f32(p.omega)
             kern = self.mode == "kernel"
             if top:
-                if kern:
-                    return _rs.ranking_victim_order(*args, omega=omega,
-                                                    top=top)
-                return _ref.ranking_victim_order_ref(*args, omega, top)
-            ranks = (_rs.ranking_scores(*args, omega=omega) if kern
+                r, idx, vals = (
+                    _rs.ranking_victim_order(*args, omega=omega, top=top)
+                    if kern else
+                    _ref.ranking_victim_order_ref(*args, omega, top))
+                parts = [vals.view(torch.int32), idx.to(torch.int32)]
+            else:
+                r = (_rs.ranking_scores(*args, omega=omega) if kern
                      else _ref.ranking_scores_ref(*args, omega))[0]
-        else:
-            ranks = self.pols[li].epilogue(sub, self.p)
-        if not top:
-            return ranks, None, None
-        idx, vals = _ref.victim_order_ref(ranks, o.cached, top)
-        return ranks, idx, vals
+                parts = []
+            ranks[li] = r
+            kern_rows.append(torch.cat(
+                [r[int(j[li]):int(j[li]) + 1].view(torch.int32)] + parts))
+        blocks = [torch.stack(kern_rows)] if kern_rows else []
+        if plain:
+            g = len(plain)
+            if g == 1:          # views: one lane costs no gather
+                li = plain[0]
+                rows = ranks[li][None]
+                cached = self.cached[li:li + 1]
+                rank_j = rows[:, int(j[li]):int(j[li]) + 1]
+            else:
+                rows = torch.stack([ranks[li] for li in plain])  # [g, N]
+                hidx = self._hidx.numpy()
+                hidx[:g] = plain
+                hidx[g:2 * g] = np.arange(g) * self.n + j[plain]
+                d = self._hidx[:2 * g].to(self.dev, non_blocking=True)
+                cached = self.cached.index_select(0, d[:g])
+                rank_j = rows.view(-1)[d[g:]][:, None]
+            parts = [rank_j.view(torch.int32)]
+            if top:
+                masked = torch.where(cached, rows, float("inf"))
+                vals, idx = torch.sort(masked, dim=1, stable=True)
+                parts += [vals[:, :top].view(torch.int32),
+                          idx[:, :top].to(torch.int32)]
+            blocks.append(torch.cat(parts, dim=1))
+        order = [li for li in lanes if li not in plain] + plain
+        return ranks, order, (blocks[0] if len(blocks) == 1
+                              else torch.cat(blocks))
 
     # --- GreedyDual cost ----------------------------------------------------
     def _gd_cost(self, f, size):
@@ -298,7 +360,7 @@ class _Engine:
         for li in np.flatnonzero(due & self.adapt):
             self.keys[li], sub = prng.split(self.keys[li])
             admit_ok[li] = prng.uniform(sub) < np.exp(
-                -s_j[li:li + 1] / self.adapt_c)[0]
+                -s_j[li:li + 1] / self.adapt_c[li:li + 1])[0]
 
         # --- GreedyDual H refresh at the exact completion time ---------------
         if self.gd.any():
@@ -317,17 +379,10 @@ class _Engine:
         o_val = np.zeros((L, top), np.float32)
         if gate.any():
             self.scored += 1
-            packed = []
-            for li in np.flatnonzero(gate):
-                r, idx, vals = self._select(li, float(t_c[li]), top)
-                ranks[li] = r
-                parts = [r[int(j[li]):int(j[li]) + 1].view(torch.int32)]
-                if top:
-                    parts += [vals.view(torch.int32), idx.to(torch.int32)]
-                packed.append(torch.cat(parts))
-            back = self._read(torch.cat(packed))
-            for k, li in enumerate(np.flatnonzero(gate)):
-                row = back[k * (1 + 2 * top):(k + 1) * (1 + 2 * top)]
+            ranks, order, packed = self._select(np.flatnonzero(gate), t_c,
+                                                j, top)
+            back = self._read(packed)
+            for row, li in zip(back, order):
                 rank_j[li] = row[:1].view(np.float32)[0]
                 o_val[li] = row[1:1 + top].view(np.float32)
                 o_idx[li] = row[1 + top:]
@@ -412,7 +467,7 @@ class _Engine:
     # --- serve ----------------------------------------------------------------
     def _serve(self, t, i: int, z) -> None:
         """Serve the request (t, i); ``z`` is its fetch time if it misses."""
-        g, b = self._gather([i] * self.L)
+        g, b = self._gather(i)
         f = lambda name: g[FIELD[name]]
         is_hit, is_delayed = b[0], b[1]
         is_miss = ~(is_hit | is_delayed)
@@ -450,7 +505,7 @@ class _Engine:
         if self.gd.any():
             hi = self.gd_clock + self._gd_cost(new, self.sizes_np[[i]])
             new[FIELD["gd_h"]] = np.where(self.gd & is_hit, hi, f("gd_h"))
-        self._scatter(self._point_writes([i] * self.L, new, new_b))
+        self._scatter(self._point_writes(i, new, new_b))
 
         self.lat_sum[:], self.lat_comp[:] = kahan_add(self.lat_sum,
                                                       self.lat_comp, lat)
@@ -458,16 +513,32 @@ class _Engine:
         self.n_delayed[:] = self.n_delayed + is_delayed
         self.n_misses[:] = self.n_misses + is_miss
 
-    def run(self) -> list[SimResult]:
-        tr = self.trace
-        times = tr.times.cpu().numpy()
-        objs = tr.objs.cpu().numpy()
-        z_draw = tr.z_draw.cpu().numpy()
+    # --- the request feed ---------------------------------------------------
+    def feed(self, times: np.ndarray, objs: np.ndarray,
+             z_draw: np.ndarray) -> None:
+        """Replay the requests ``(times f32[k], objs int[k], z_draw
+        f32[k])`` (host arrays) after those fed before."""
         with np.errstate(all="ignore"):
-            for r in range(tr.n_requests):
+            for r in range(times.shape[0]):
                 t = times[r:r + 1]
                 self._commit_due(t)
                 self._serve(t, int(objs[r]), z_draw[r:r + 1])
+        self.requests += times.shape[0]
+
+    def shift(self, delta: np.float32) -> None:
+        """Rebase every absolute time by ``-delta`` (f32), as the reference
+        state's ``shift_times`` does: the state's time fields on the card,
+        the host ``min_complete`` and each lane's heap of completion times
+        (re-heaped, since distinct times may round to one)."""
+        if delta == 0:
+            return
+        shift_times(self.st, float(delta))
+        for li, h in enumerate(self.heaps):
+            self.heaps[li] = [(float(np.float32(c) - delta), j)
+                              for c, j in h]
+            heapq.heapify(self.heaps[li])
+
+    def result(self) -> list[SimResult]:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         s = self.st
@@ -476,26 +547,46 @@ class _Engine:
                           s.n_evictions[li].clone()) for li in range(self.L)]
 
     def stats(self) -> dict:
-        return {"requests": self.trace.n_requests, "syncs": self.syncs,
+        return {"requests": self.requests, "syncs": self.syncs,
                 "commits": self.commits, "scoring_commits": self.scored}
+
+
+def host_requests(trace: Trace, lo: int = 0, hi: int | None = None):
+    """Requests ``lo:hi`` of a trace as host arrays (times, objs, z_draw)."""
+    sl = slice(lo, hi)
+    return (trace.times[sl].cpu().numpy(), trace.objs[sl].cpu().numpy(),
+            trace.z_draw[sl].cpu().numpy())
+
+
+def check_policies(names) -> None:
+    unknown = [n for n in names if n not in POLICIES]
+    if unknown:
+        raise ValueError(f"unknown policy {unknown[0]!r}; known: "
+                         f"{sorted(POLICIES)}")
+
+
+def add_counters(counters: dict | None, engines) -> None:
+    if counters is None:
+        return
+    for eng in engines:
+        for k, v in eng.stats().items():
+            counters[k] = counters.get(k, 0) + v
 
 
 def _run(trace, capacity, policies, params, key, estimate_z,
          use_kernel, evict_top, device, counters):
     dev = resolve_device(device)
-    for name in policies:
-        if name not in POLICIES:
-            raise ValueError(f"unknown policy {name!r}; known: "
-                             f"{sorted(POLICIES)}")
+    check_policies(policies)
     if params is None:
         params = PolicyParams()
-    eng = _Engine(_trace_on(trace, dev), capacity, tuple(policies), params,
-                  estimate_z, resolve_score_mode(use_kernel, dev), evict_top,
-                  key)
-    res = eng.run()
-    if counters is not None:
-        for k, v in eng.stats().items():
-            counters[k] = counters.get(k, 0) + v
+    trace = _trace_on(trace, dev)
+    L = len(policies)
+    eng = _Engine(trace.sizes, trace.z_mean, capacity, tuple(policies),
+                  (params,) * L, (key,) * L, estimate_z,
+                  resolve_score_mode(use_kernel, dev), evict_top)
+    eng.feed(*host_requests(trace))
+    res = eng.result()
+    add_counters(counters, [eng])
     return res
 
 
@@ -534,3 +625,114 @@ def latency_improvement(trace: Trace, capacity: float, policy: str,
                estimate_z, use_kernel, None, device, counters)
     la, lb = res[0].total_latency, res[1].total_latency
     return (lb - la) / lb
+
+
+# ---------------------------------------------------------------------------
+# Streaming replay: a host-resident request stream fed chunk by chunk
+# ---------------------------------------------------------------------------
+def resolve_chunk_size(chunk_size, n_requests: int) -> int:
+    """An int passes through; ``'auto'`` or None picks
+    :func:`repro_torch.core.trace.auto_chunk_size`."""
+    if chunk_size is None or chunk_size == "auto":
+        return auto_chunk_size(n_requests)
+    if isinstance(chunk_size, str):
+        raise ValueError(f"chunk_size={chunk_size!r}; the only string "
+                         f"value is 'auto' (or pass an int / None)")
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size={chunk_size} must be >= 1")
+    return int(chunk_size)
+
+
+def stream_chunks(times64: np.ndarray, chunk_size: int, rebase: bool):
+    """``(lo, hi, t_local f32[hi - lo], delta f32)`` per chunk, as the
+    reference's ``_stream_chunks`` builds them: with ``rebase`` each chunk's
+    times become f32 offsets from its first time, and ``delta`` is the f64
+    step between consecutive bases rounded to f32 (0 without ``rebase``)."""
+    base = 0.0
+    n = times64.shape[0]
+    for lo in range(0, n, chunk_size):
+        hi = min(lo + chunk_size, n)
+        new_base = float(times64[lo]) if rebase else base
+        t_loc = (times64[lo:hi] - new_base).astype(np.float32)
+        yield lo, hi, t_loc, np.float32(new_base - base)
+        base = new_base
+
+
+def _check_dense(state_mode, n_slots, slot_seed) -> None:
+    if state_mode == "slots" or n_slots is not None or slot_seed != 0:
+        raise NotImplementedError(
+            "slot-table state (state_mode='slots', n_slots, slot_seed) is "
+            "not ported yet: ROADMAP queue 1, item 7")
+    if state_mode != "dense":
+        raise ValueError(f"state_mode={state_mode!r}; expected 'dense'")
+
+
+def simulate_stream(stream: RequestStream, capacity: float,
+                    policy: str = "stoch_vacdh",
+                    params: PolicyParams | None = None, key=(0, 0),
+                    estimate_z: bool = False, use_kernel=None,
+                    chunk_size: int | str | None = 65536,
+                    rebase: bool = True, evict_top: int | None = None,
+                    state_mode: str = "dense", n_slots: int | None = None,
+                    slot_seed: int = 0, device=None,
+                    counters: dict | None = None) -> SimResult:
+    """Run one policy over a host-resident stream, one chunk at a time, on
+    ``device`` (None: the card).
+
+    Only the ``[N]`` object columns go to the device; the engine reads each
+    chunk's requests from the host arrays, so the request axis is never
+    uploaded.  ``rebase=True`` (the long-trace default) hands the engine
+    each chunk's f64 times as f32 offsets from the chunk's first time and
+    shifts the carried state's absolute times, on the card and in the host
+    heap of completion times, by the f64 step between bases rounded to f32
+    (:func:`stream_chunks`): precision is then set by the chunk's span, not
+    the trace's, and the replay is shift-invariant bit for bit.
+    ``rebase=False`` feeds absolute f32 times and is bitwise identical to
+    :func:`simulate`.  ``chunk_size='auto'`` picks
+    :func:`repro_torch.core.trace.auto_chunk_size`.
+
+    Unlike the reference there are no padded tail steps (its pad exists
+    to share one compiled graph; this loop stops at the last request) and
+    no ``prefetch`` argument (there is no device queue to double-buffer:
+    the host walks the requests itself).  ``state_mode='slots'``,
+    ``n_slots`` and ``slot_seed`` raise ``NotImplementedError`` until the
+    slot-table state is ported."""
+    _check_dense(state_mode, n_slots, slot_seed)
+    dev = resolve_device(device)
+    check_policies((policy,))
+    if params is None:
+        params = PolicyParams()
+    chunk_size = resolve_chunk_size(chunk_size, stream.n_requests)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    eng = _Engine(f32(stream.sizes), f32(stream.z_mean), capacity,
+                  (policy,), (params,), (key,), estimate_z,
+                  resolve_score_mode(use_kernel, dev), evict_top)
+    times64 = np.asarray(stream.times, np.float64)
+    objs = np.asarray(stream.objs, np.int32)
+    z_draw = np.asarray(stream.z_draw, np.float32)
+    for lo, hi, t_loc, delta in stream_chunks(times64, chunk_size, rebase):
+        eng.shift(delta)
+        eng.feed(t_loc, objs[lo:hi], z_draw[lo:hi])
+    res = eng.result()[0]
+    add_counters(counters, [eng])
+    return res
+
+
+def simulate_chunked(trace: Trace, capacity: float,
+                     policy: str = "stoch_vacdh",
+                     params: PolicyParams | None = None, key=(0, 0),
+                     estimate_z: bool = False, use_kernel=None,
+                     chunk_size: int = 65536,
+                     evict_top: int | None = None,
+                     state_mode: str = "dense", n_slots: int | None = None,
+                     slot_seed: int = 0, device=None,
+                     counters: dict | None = None) -> SimResult:
+    """:func:`simulate` fed chunk by chunk: ``simulate_stream(
+    stream_of_trace(trace), rebase=False)``, bitwise equal to
+    :func:`simulate` at every chunk size."""
+    return simulate_stream(stream_of_trace(trace), capacity, policy, params,
+                           key, estimate_z, use_kernel, chunk_size,
+                           rebase=False, evict_top=evict_top,
+                           state_mode=state_mode, n_slots=n_slots,
+                           slot_seed=slot_seed, device=device,
+                           counters=counters)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 INF = float("inf")
@@ -81,12 +82,14 @@ class SimState:
         return ObjStats(**views)
 
 
-def init_state(n_objects: int, capacity: float, z_prior: torch.Tensor,
+def init_state(n_objects: int, capacity, z_prior: torch.Tensor,
                n_lanes: int = 1, device=None) -> SimState:
     """Fresh state for ``n_lanes`` lanes over ``n_objects`` objects.
 
-    ``z_prior`` [N] seeds every lane's per-object latency estimate (the
-    known mean of the fetch-latency model, as in the paper's setup)."""
+    ``capacity`` is one size for every lane or one per lane, rounded to
+    f32.  ``z_prior`` [N] seeds every lane's per-object latency estimate
+    (the known mean of the fetch-latency model, as in the paper's
+    setup)."""
     dev = torch.device(device) if device is not None else z_prior.device
     values = torch.zeros((len(F32_FIELDS), n_lanes, n_objects),
                          dtype=torch.float32, device=dev)
@@ -98,7 +101,9 @@ def init_state(n_objects: int, capacity: float, z_prior: torch.Tensor,
     flags = torch.zeros((len(BOOL_FIELDS), n_lanes, n_objects),
                         dtype=torch.bool, device=dev)
     s = lambda v: torch.full((n_lanes,), v, dtype=torch.float32)
-    return SimState(values=values, flags=flags, free=s(float(capacity)),
+    free = torch.from_numpy(np.broadcast_to(
+        np.asarray(capacity, np.float32), (n_lanes,)).copy())
+    return SimState(values=values, flags=flags, free=free,
                     gd_clock=s(0.0), min_complete=s(INF), lat_sum=s(0.0),
                     lat_comp=s(0.0), n_hits=s(0.0), n_delayed=s(0.0),
                     n_misses=s(0.0), n_evictions=s(0.0))

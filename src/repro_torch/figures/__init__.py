@@ -1,0 +1,7 @@
+"""The paper's figure drivers on the port (fig2-fig5).
+
+    python3 -m repro_torch.figures.run --only fig2,fig4 [--device cpu]
+
+Each driver's ``run()`` returns rows in the JAX package's schema
+(``benchmarks/``); CSVs go to ``repro_torch/figures/results/``.
+"""

@@ -2,13 +2,17 @@
 """Where the port's replay spends its time on the card.
 
     PYTHONPATH=src python3 -m repro_torch.profile_replay [--requests N]
+    PYTHONPATH=src python3 -m repro_torch.profile_replay --grid [--requests N]
 
-For the two cells of chip_smoke.py (fig2: eq. 16 vs LRU as two lanes over
-100 objects; deploy: eq.-16 simulate over 2^20 objects), replays a window
-of requests and prints one JSON line per cell with:
+For the two one-lane cells of chip_smoke.py (fig2: eq. 16 vs LRU as two
+lanes over 100 objects; deploy: eq.-16 simulate over 2^20 objects), or
+with ``--grid`` for its phase-9(b) grid (lru / vacdh / stoch_vacdh x omega
+{0.5, 1, 2} x capacity {5%, 10%}: 18 lanes over 2^20 objects), replays a
+window of requests and prints one JSON line per cell with:
 
 - wall seconds and requests per second (host clock, ending in a sync),
-  device syncs and kernel launches per request;
+  device syncs and kernel launches per request (and, for the grid,
+  lane-requests per second and syncs per lane-request);
 - device busy seconds: the sum of CUDA kernel and memcpy time in a
   ``torch.profiler`` trace of a second replay of the same window, and the
   idle share ``1 - busy / wall`` against the unprofiled wall time;
@@ -98,18 +102,25 @@ def profile_cell(label, run):
            "host_s": parts,
            "top_device_ops": [{"op": k, "s": s, "count": c}
                               for k, s, c in top]}
+    if "lane_requests" in counts:
+        out["lane_requests_per_s"] = counts["lane_requests"] / wall
+        out["syncs_per_lane_request"] = (counts["syncs"]
+                                         / counts["lane_requests"])
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=3000)
+    ap.add_argument("--grid", action="store_true",
+                    help="profile the 18-lane 2^20 grid instead of the "
+                         "one-lane cells")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_replay: no CUDA device", file=sys.stderr)
         return 2
-    from .core import PolicyParams, latency_improvement, simulate
+    from .core import PolicyParams, latency_improvement, simulate, sweep_grid
     from .data.traces import SyntheticSpec, synthetic_trace
 
     params = PolicyParams(omega=1.0, resid="recency")
@@ -127,6 +138,7 @@ def main() -> int:
         n_objects=1 << 20, n_requests=args.requests, zipf_alpha=0.9,
         rate=2000.0, latency_base=0.005, latency_per_mb=2e-4))
     touched = torch.unique(deploy.objs.long())
+    foot = float(deploy.sizes[touched].sum())
     cap = float(0.1 * deploy.sizes[touched].sum())
 
     def run_deploy():
@@ -135,12 +147,24 @@ def main() -> int:
                  use_kernel=True, counters=c)
         return c
 
+    def run_grid():
+        c = {}
+        sweep_grid(deploy, [0.05 * foot, 0.10 * foot],
+                   ["lru", "vacdh", "stoch_vacdh"],
+                   [PolicyParams(omega=o, resid="recency")
+                    for o in (0.5, 1.0, 2.0)],
+                   estimate_z=True, use_kernel=True, counters=c)
+        return c
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    profile_cell("fig2", run_fig2)
-    profile_cell("deploy", run_deploy)
+    if args.grid:
+        profile_cell("grid", run_grid)
+    else:
+        profile_cell("fig2", run_fig2)
+        profile_cell("deploy", run_deploy)
     return 0
 
 

@@ -14,7 +14,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.convert import trace_from_arrays
-from repro_torch.core import latency_improvement, make_trace, simulate
+from repro_torch.core import (latency_improvement, make_trace, simulate,
+                              simulate_chunked, simulate_stream,
+                              stream_of_trace, sweep_grid, trace_of_stream)
 from repro_torch.core.simulator import resolve_score_mode
 from repro_torch.kernels import _build
 
@@ -38,9 +40,14 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.kernels.flash_attention, "
         "repro_torch.kernels.decode_attention, "
         "repro_torch.kernels.gla_chunk, repro_torch.models.ssm, "
-        "repro_torch.profile_serve, "
+        "repro_torch.profile_serve, repro_torch.profile_replay, "
         "repro_torch.training.train_loop, repro_torch.serving.scheduler, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.core.sweep, "
+        "repro_torch.core.trace, repro_torch.figures.common, "
+        "repro_torch.figures.fig2_synthetic, "
+        "repro_torch.figures.fig3_trace_stats, "
+        "repro_torch.figures.fig4_sensitivity, "
+        "repro_torch.figures.fig5_real_traces, repro_torch.figures.run\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -84,6 +91,30 @@ def test_entry_points_raise_without_a_card():
         make_trace([1.0], [0], [1.0], [0.5])
     with pytest.raises(RuntimeError):
         trace_from_arrays([1.0], [0], [1.0], [0.5], [0.5])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_grid(_cpu_trace(), 1.0, ["lru", "stoch_vacdh"])
+    stream = stream_of_trace(_cpu_trace())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_stream(stream, 1.0, "lru")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_chunked(_cpu_trace(), 1.0, "lru")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trace_of_stream(stream)
+
+
+def test_figure_drivers_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    from repro_torch.figures import (fig2_synthetic, fig3_trace_stats,
+                                     fig4_sensitivity, fig5_real_traces, run)
+    for fn in (lambda: fig2_synthetic.run(n_requests=10),
+               fig3_trace_stats.run,
+               lambda: fig4_sensitivity.run(n_requests=10),
+               lambda: fig4_sensitivity.run_compare(n_requests=10),
+               lambda: fig5_real_traces.run(n_requests=10),
+               lambda: run.main(["--only", "fig3"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
 
 
 def test_lm_entry_points_raise_without_a_card():

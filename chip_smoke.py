@@ -66,13 +66,15 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    and through their plain versions (after an untimed warm-up of both),
    and the f32 check.
 
-9. the sweep grid: (a) fig2 at its driver's default size through
-   ``repro_torch.figures.fig2_synthetic.run`` (100 objects, 30,000
-   requests, Poisson and Pareto arrivals, C = 500 MB; the 11-policy
-   roster with the recency residual and the rate residual's three
-   policies, each with its LRU lane) through the kernels and, side by
-   side in a second process, through the plain versions, all four grids
-   bit for bit, the eq.-16
+9. the sweep grid: (a) fig2 through ``repro_torch.figures.
+   fig2_synthetic.run`` at ``FIG2_GRID_REQUESTS`` = 10,000 requests
+   (cut from fig2's own 30,000: at 30,000 phases 0-10 alone took 949 s
+   on an H100 80GB HBM3 at 700 W, and phases 0-12 over 1300 s; 100
+   objects, Poisson and Pareto arrivals, C = 500 MB; the 11-policy roster
+   with the recency residual and the rate residual's three policies, each
+   with its LRU lane) through the kernels and, side by side in a second
+   process, through the plain versions, all four grids bit for bit, the
+   eq.-16
    Poisson/recency improvement inside 3-30%, every policy's improvement
    printed; (b) lru / vacdh / stoch_vacdh x omega {0.5, 1, 2} x capacity
    {5%, 10%} of the touched footprint over phase 3's 2^20-object
@@ -87,8 +89,30 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    capacity 10% of the footprint) and replayed by ``simulate_stream``
    (chunks of 4096, rebased) through the kernels and the plain versions
    bit for bit; ``simulate_chunked`` (4096) against ``simulate`` on
-   phase 2's fig2 trace, and the chunked fig2 Poisson rate grid against
-   9(a)'s unchunked one.
+   9(a)'s fig2 Poisson trace (``FIG2_GRID_REQUESTS``), and the chunked
+   fig2 Poisson rate grid against 9(a)'s unchunked one;
+11. the slot table: phase 10's raw stream with every key its own id
+   (``exact_requests``: fig_realworld's exact rows) replayed by
+   ``simulate_stream(state_mode="slots")`` over ``slot_table_size(200,000,
+   load=0.75)`` = 2^19 slots (chunks of 4096, rebased; the eq.-16 lane
+   scored by ``ranking_scores`` over the table, every eviction an argmin
+   with the id tie-break) through the kernels and the plain versions,
+   and the dense ``evict_top=0`` replay of the same stream, all bit for
+   bit; a ``SLOT_PREFIX`` = 5,000-request prefix under hash seeds 0 and 1
+   (bit for bit) and through a table of half its keys (reclaim fires),
+   kernels against plain versions bit for bit with every request
+   counted; one eviction's pick at 2^19 slots, its device kernels
+   (``torch.profiler``) and time with the id and the position tie-break;
+12. the hierarchy: (a) ``fig6_hierarchy.run`` over its default grid
+   (routes hash and random x S 1 and 4, each a grid of 4 hop laws x 3
+   policies x L2 0/2000) cut to ``HIER_REQUESTS`` = 5,000 requests, with
+   the kernel writes and, side by side in a second process, the plain
+   writes, every point bit for bit, the eq.-16 improvement over LRU
+   printed per route, S, hop law and L2 capacity; (b) 4 hash-routed L1 shards (stoch_vacdh,
+   5% of the touched footprint each) over an LRU L2 (20%), exponential
+   hops of mean 0.01 s, over phase 3's 2^20-object universe (5 lanes,
+   262 MB of state) for the same 5,000 requests, kernel writes against
+   plain writes bit for bit, with req/s and syncs per request.
 
 Each main-path run starts from zeroed launch counts, prints its
 lane-scatter launches per request, and must launch every kernel it
@@ -119,6 +143,11 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
 GRID_REQUESTS = 5_000         # phase 9b's replay, cut for the host-bound rate
+FIG2_GRID_REQUESTS = 10_000   # phases 9a-10's fig2, cut for the time limit
+STREAM_REQUESTS = 20_000      # phases 10-11's stream, cut from 1,000,000
+N_KEYS = 200_000              # fig_realworld's key space
+SLOT_PREFIX = 5_000           # phase 11's seed and reclaim runs
+HIER_REQUESTS = 5_000         # phase 12's hierarchies, cut for the host rate
 
 
 def log(*a):
@@ -1302,6 +1331,7 @@ def fig2_plain(conn) -> None:
         grids = []
         drive("phase 9a: fig2_synthetic.run(use_kernel='ref')",
               lambda c: fig2_synthetic.run(use_kernel="ref", counters=c,
+                                           n_requests=FIG2_GRID_REQUESTS,
                                            grids=grids))
         conn.send(("ok", [grid_arrays(g) for g in grids]))
     except BaseException:
@@ -1328,6 +1358,7 @@ def phase_grid_fig2(launches: dict, grids_out: dict) -> None:
         rows, _, lc = drive(
             "phase 9a: fig2_synthetic.run(use_kernel=True)",
             lambda c: fig2_synthetic.run(use_kernel=True, counters=c,
+                                         n_requests=FIG2_GRID_REQUESTS,
                                          grids=kern),
             ("ranking_victim_order", "lane_scatter"))
         add_launches(launches, lc)
@@ -1471,8 +1502,8 @@ def phase_stream(launches: dict, grids: dict) -> None:
     log(f"phase 10: stream kernels == plain bitwise: latency "
         f"{float(r.total_latency)}, hit ratio {float(r.hit_ratio):.4f}")
 
-    spec = SyntheticSpec(n_objects=100, n_requests=30_000, zipf_alpha=0.9,
-                         rate=2000.0, latency_base=0.005,
+    spec = SyntheticSpec(n_objects=100, n_requests=FIG2_GRID_REQUESTS,
+                         zipf_alpha=0.9, rate=2000.0, latency_base=0.005,
                          latency_per_mb=2e-4, stochastic=True)
     tr = synthetic_trace(torch.Generator().manual_seed(0), spec)
     p2 = PolicyParams(omega=1.0, resid="recency")
@@ -1502,6 +1533,235 @@ def phase_stream(launches: dict, grids: dict) -> None:
         f"{np.prod(g0.result.total_latency.shape)}-lane grid == the "
         f"unchunked grid, bit for bit")
 
+
+
+# --- phases 11-12: the slot table and the hierarchy --------------------------
+def eviction_pick_launches(n: int) -> tuple[int, int, float, float]:
+    """Device kernels of one eviction of the per-eviction loop at ``n``
+    entries, with the slot table's id tie-break and with the dense
+    position tie-break (``torch.profiler``), and their CUDA-event times
+    in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.simulator import eviction_pick
+    g = torch.Generator(device="cuda").manual_seed(11)
+    ranks = torch.rand(n, generator=g, device="cuda")
+    cached = torch.rand(n, generator=g, device="cuda") < 0.5
+    ids = torch.randperm(n, generator=g, device="cuda").to(torch.int32)
+    out = []
+    for i in (ids, None):
+        eviction_pick(cached, ranks, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eviction_pick(cached, ranks, i)
+            torch.cuda.synchronize()
+        out.append(sum(1 for e in prof.events()
+                       if e.device_type == DeviceType.CUDA))
+    return (*out, time_ms(lambda: eviction_pick(cached, ranks, ids)),
+            time_ms(lambda: eviction_pick(cached, ranks, None)))
+
+
+def phase_slots(launches: dict) -> None:
+    """11: phase 10's raw stream, every key its own id, replayed through a
+    2^19-slot table (kernels against plain versions, slots against dense),
+    then a prefix under two hash seeds and through a table of half its
+    keys (reclaim)."""
+    import numpy as np
+    from repro_torch.core import PolicyParams, RequestStream, simulate_stream
+    from repro_torch.core.state import slot_table_size
+    from repro_torch.data.traces import (RealWorldSpec, exact_requests,
+                                         realworld_raw)
+
+    raw = realworld_raw(RealWorldSpec(n_requests=STREAM_REQUESTS,
+                                      n_keys=N_KEYS, seed=0))
+    stream, stats = exact_requests(raw)
+    n_slots = slot_table_size(N_KEYS, load=0.75)
+    cap = 0.1 * float(stream.sizes.sum())
+    log(f"phase 11: {stream.n_requests} requests, {stats.n_unique} of "
+        f"{N_KEYS} keys touched, each its own id; {n_slots} slots "
+        f"(slot_table_size({N_KEYS}, load=0.75)), capacity {cap:.1f} MB, "
+        f"chunks of 4096, rebased")
+    params = PolicyParams(omega=1.0)
+
+    def replay(st, mode, label, needs, **kw):
+        out, counts, lc = drive(
+            f"phase 11: {label}",
+            lambda c: simulate_stream(st, cap, "stoch_vacdh", params,
+                                      estimate_z=True, use_kernel=mode,
+                                      chunk_size=4096, rebase=True,
+                                      counters=c, **kw), needs)
+        if mode is True:
+            add_launches(launches, lc)
+            per_req = lc["ranking_scores"] / counts["requests"]
+            log(f"phase 11: {label}: {per_req:.4f} ranking_scores "
+                f"launches/request, {counts.get('reclaims', 0)} reclaims")
+        return out, counts
+
+    kern, kc = replay(stream, True, "slots, kernels",
+                      ("ranking_scores", "lane_scatter"),
+                      state_mode="slots", n_slots=n_slots)
+    plain, _ = replay(stream, "ref", "slots, plain versions", (),
+                      state_mode="slots", n_slots=n_slots)
+    if not same_result(kern, plain):
+        raise AssertionError(f"slots: kernels {kern} != plain {plain}")
+    dense, _ = replay(stream, True, "dense, evict_top=0, kernels",
+                      ("ranking_scores", "lane_scatter"), evict_top=0)
+    if not same_result(kern, dense):
+        raise AssertionError(f"slots {kern} != dense {dense}")
+    n = int(kern.n_hits + kern.n_delayed + kern.n_misses)
+    if n != stream.n_requests or kc["reclaims"]:
+        raise AssertionError(f"slots: {n} requests, {kc['reclaims']} "
+                             f"reclaims")
+    log(f"phase 11: slots == plain == dense bitwise: latency "
+        f"{float(kern.total_latency)}, hit ratio {float(kern.hit_ratio):.4f}"
+        f", evictions {int(kern.n_evictions)}")
+
+    k = SLOT_PREFIX
+    pre = RequestStream(stream.times[:k], stream.objs[:k], stream.sizes,
+                        stream.z_mean, stream.z_draw[:k])
+    n_pre = int(np.unique(pre.objs).size)
+    seeds = [replay(pre, True, f"prefix, slot_seed {sd}",
+                    ("ranking_scores", "lane_scatter"), state_mode="slots",
+                    slot_seed=sd)[0] for sd in (0, 1)]
+    if not same_result(*seeds):
+        raise AssertionError(f"slot seeds differ: {seeds}")
+    small = dict(state_mode="slots", n_slots=n_pre // 2)
+    rk, rc = replay(pre, True, f"prefix, {n_pre // 2} slots, kernels",
+                    ("ranking_scores", "lane_scatter"), **small)
+    rp, _ = replay(pre, "ref", f"prefix, {n_pre // 2} slots, plain "
+                   f"versions", (), **small)
+    if not same_result(rk, rp):
+        raise AssertionError(f"reclaim: kernels {rk} != plain {rp}")
+    if rc["reclaims"] <= 0 or int(rk.n_hits + rk.n_delayed
+                                  + rk.n_misses) != k:
+        raise AssertionError(f"reclaim run: {rk}, {rc}")
+    log(f"phase 11: {k}-request prefix ({n_pre} keys): slot seeds 0 and 1 "
+        f"bitwise equal; {n_pre // 2} slots: {rc['reclaims']} reclaims, "
+        f"kernels == plain bitwise, every request counted")
+    tb, dn, tb_ms, dn_ms = eviction_pick_launches(n_slots)
+    log(f"phase 11: one eviction's pick at {n_slots} slots: {tb} device "
+        f"kernels with the id tie-break ({tb_ms * 1e3:.2f} us), {dn} with "
+        f"the position tie-break ({dn_ms * 1e3:.2f} us)")
+
+
+def hier_grid_arrays(g) -> dict:
+    """A HierSweepGrid's result fields as host numpy arrays."""
+    import dataclasses
+    return {f"{tier}.{f.name}": getattr(getattr(g.result, tier),
+                                        f.name).cpu().numpy()
+            for tier in ("per_shard", "l2")
+            for f in dataclasses.fields(g.result.l2)}
+
+
+def fig6_plain(conn) -> None:
+    """12(a)'s run through the plain versions, in a process of its own:
+    sends back ("ok", its grids' ``hier_grid_arrays``) or ("error", the
+    traceback)."""
+    try:
+        from repro_torch.figures import fig6_hierarchy
+        grids = []
+        drive("phase 12a: fig6_hierarchy.run(use_kernel='ref')",
+              lambda c: fig6_hierarchy.run(use_kernel="ref", counters=c,
+                                           n_requests=HIER_REQUESTS,
+                                           grids=grids))
+        conn.send(("ok", [hier_grid_arrays(g) for g in grids]))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def phase_hier(launches: dict) -> None:
+    """12: (a) fig6 over its default grid at ``HIER_REQUESTS``, kernel
+    writes against plain writes (a second process, side by side) bit for
+    bit; (b) a deployment-size hierarchy over the 2^20-object universe."""
+    import multiprocessing
+    import torch
+    from repro_torch.core import (Exponential, PolicyParams,
+                                  make_hier_trace, simulate_hier)
+    from repro_torch.core.state import F32_FIELDS
+    from repro_torch.data.traces import SyntheticSpec, synthetic_trace
+    from repro_torch.figures import fig6_hierarchy
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=fig6_plain, args=(send,))
+    child.start()
+    send.close()
+    try:
+        kern = []
+        rows, _, lc = drive(
+            "phase 12a: fig6_hierarchy.run(use_kernel=True)",
+            lambda c: fig6_hierarchy.run(use_kernel=True, counters=c,
+                                         n_requests=HIER_REQUESTS,
+                                         grids=kern), ("lane_scatter",))
+        add_launches(launches, lc)
+        status, plain = recv.recv()
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+    if status != "ok":
+        raise AssertionError(f"phase 12a's plain run failed:\n{plain}")
+    if len(kern) != 4 or len(plain) != 4:
+        raise AssertionError(f"fig6 ran {len(kern)} / {len(plain)} grids")
+    for a, b in zip(kern, plain):
+        fa = hier_grid_arrays(a)
+        if fa.keys() != b.keys() or not all(
+                bitwise_equal(torch.from_numpy(fa[k]),
+                              torch.from_numpy(b[k])) for k in fa):
+            raise AssertionError(f"fig6 grid (S={a.n_shards}): kernel "
+                                 f"writes != plain writes")
+    log(f"phase 12a: 4 grids (routes hash/random x S 1/4; 4 hop laws x 3 "
+        f"policies x L2 0/2000 each), {HIER_REQUESTS} requests: kernel "
+        f"writes == plain writes bitwise in every point")
+    for r in rows:
+        if r["policy"] == "stoch_vacdh":
+            log(f"phase 12a: route={r['route']:6s} S={r['n_shards']} "
+                f"hop={r['hop_dist']:8s} (CV {r['hop_cv']}) L2="
+                f"{r['l2_capacity']:6.0f}: eq.-16 improvement over LRU "
+                f"{r['improvement_vs_lru'] * 100:8.3f}%, L1 hit ratio "
+                f"{r['l1_hit_ratio']}, L2 hit ratio {r['l2_hit_ratio']}")
+        if not torch.isfinite(torch.tensor(r["total_latency"])):
+            raise AssertionError(f"fig6 row {r}")
+
+    spec = SyntheticSpec(n_objects=N_DEPLOY, n_requests=HIER_REQUESTS,
+                         zipf_alpha=0.9, rate=2000.0, latency_base=0.005,
+                         latency_per_mb=2e-4, stochastic=True)
+    tr = synthetic_trace(torch.Generator().manual_seed(7), spec)
+    foot = float(tr.sizes[torch.unique(tr.objs.long())].sum())
+    ht = make_hier_trace(tr, 4, generator=torch.Generator().manual_seed(7),
+                         hop_mean=0.01, hop_dist=Exponential(), route="hash")
+    c1, c2 = 0.05 * foot, 0.20 * foot
+    state_mb = (len(F32_FIELDS) * 4 + 2) * N_DEPLOY * 5 / 1e6
+    log(f"phase 12b: 4 hash-routed L1 shards (stoch_vacdh, {c1:.1f} MB "
+        f"each = 5% of the touched {foot:.1f} MB) over an LRU L2 "
+        f"({c2:.1f} MB), exponential hops of mean 0.01 s, {N_DEPLOY} "
+        f"objects ({state_mb:.1f} MB of state), {HIER_REQUESTS} requests")
+    params = PolicyParams(omega=1.0, resid="recency")
+    runs = {}
+    for mode, needs in ((True, ("lane_scatter",)), ("ref", ())):
+        runs[mode] = drive(
+            f"phase 12b: simulate_hier(use_kernel={mode!r})",
+            lambda c, mode=mode: simulate_hier(
+                ht, 4, c1, c2, "stoch_vacdh", "lru", params=params,
+                use_kernel=mode, counters=c), needs)
+    add_launches(launches, runs[True][2])
+    a, b = runs[True][0], runs["ref"][0]
+    if not (same_result(a.l2, b.l2) and all(
+            bitwise_equal(getattr(a.per_shard, f), getattr(b.per_shard, f))
+            for f in ("total_latency", "n_hits", "n_delayed", "n_misses",
+                      "n_evictions"))):
+        raise AssertionError(f"12b: kernel writes {a} != plain {b}")
+    l2_arr = int(a.l2.n_hits + a.l2.n_delayed + a.l2.n_misses)
+    if int(a.n_requests) != HIER_REQUESTS or l2_arr != int(a.n_misses):
+        raise AssertionError(f"12b counts: {a}")
+    log(f"phase 12b: kernel writes == plain writes bitwise: latency "
+        f"{float(a.total_latency)}, L1 hit ratio {float(a.hit_ratio):.4f}, "
+        f"L2 arrivals {l2_arr} = L1 misses, L2 hits {int(a.l2.n_hits)}")
 
 
 def main() -> int:
@@ -1545,8 +1805,10 @@ def main() -> int:
     timed("9a", phase_grid_fig2, launches, grids)
     timed("9b", phase_grid_deploy, GRID_REQUESTS, launches)
     timed("10", phase_stream, launches, grids)
+    timed("11", phase_slots, launches)
+    timed("12", phase_hier, launches)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3 and 5-10: "
+    log(f"launches over the main-path runs of phases 2-3 and 5-12: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

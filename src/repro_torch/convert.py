@@ -14,6 +14,7 @@ import torch
 
 from ._device import resolve_device
 from .core.distributions import make_distribution
+from .core.hierarchy import HierTrace
 from .core.ranking import PolicyParams
 from .core.state import ObjStats
 from .core.trace import Trace
@@ -30,6 +31,19 @@ def trace_from_arrays(times, objs, sizes, z_mean, z_draw,
                  objs=torch.as_tensor(np.array(objs, np.int32),
                                       device=dev),
                  sizes=f32(sizes), z_mean=f32(z_mean), z_draw=f32(z_draw))
+
+
+def hier_trace_from_arrays(times, objs, shards, sizes, z_mean, z_draw,
+                           hop_draw, hop_mean, device=None) -> HierTrace:
+    """A :class:`HierTrace` from array-likes (the reference's
+    ``HierTrace`` fields in order), on ``device`` (None: the card)."""
+    t = trace_from_arrays(times, objs, sizes, z_mean, z_draw, device)
+    i32 = lambda x: torch.as_tensor(np.array(x, np.int32), device=t.device)
+    return HierTrace(t.times, t.objs, i32(shards), t.sizes, t.z_mean,
+                     t.z_draw,
+                     torch.as_tensor(np.array(hop_draw, np.float32),
+                                     device=t.device),
+                     float(np.float32(hop_mean)))
 
 
 def params_from_dict(d: dict) -> PolicyParams:

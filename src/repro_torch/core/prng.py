@@ -3,9 +3,10 @@ threefry2x32 implementation with ``jax_threefry_partitionable=True``.
 
 Keys are carried as key data: a pair ``(k0, k1)`` of uint32 (``(0, s)`` is
 ``jax.random.key(s)`` for ``0 <= s < 2**32``).  Only the two operations the
-simulator's AdaptSize admission coin needs are provided: :func:`split` into
-two keys and :func:`uniform` for one f32 scalar in ``[0, 1)``.  Both are a
-single threefry2x32 block on the host; no kernel is involved.
+simulator needs are provided: :func:`split` into ``n`` keys (the AdaptSize
+admission coin, the hierarchy's per-tier keys) and :func:`uniform` for one
+f32 scalar in ``[0, 1)``.  Each key and each
+draw is one threefry2x32 block on the host; no kernel is involved.
 """
 from __future__ import annotations
 
@@ -35,11 +36,11 @@ def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
     return x0, x1
 
 
-def split(key) -> tuple[tuple[int, int], tuple[int, int]]:
-    """``jax.random.split(key)``: key ``i`` is the block at counter
-    ``(0, i)``."""
+def split(key, n: int = 2) -> tuple[tuple[int, int], ...]:
+    """``jax.random.split(key, n)``: key ``i`` is the block at counter
+    ``(0, i)`` (``jax_threefry_partitionable=True``)."""
     k0, k1 = (int(k) for k in key)
-    return threefry2x32(k0, k1, 0, 0), threefry2x32(k0, k1, 0, 1)
+    return tuple(threefry2x32(k0, k1, 0, i) for i in range(n))
 
 
 def uniform(key) -> np.float32:

@@ -46,6 +46,15 @@ The engine takes its requests from host arrays, a chunk at a time:
 (its f64 times rebased to f32 offsets from each chunk's start), so the
 request axis is never uploaded to the card.
 
+``state_mode='slots'`` runs the same engine over a hashed slot table
+(:class:`_SlotEngine`): the per-object state is ``[S]``, an object takes
+its slot on first touch, and every reduction over the slot axis breaks
+ties by object id, so the replay equals the dense one bit for bit while
+the table never fills.  The hierarchy
+(:mod:`repro_torch.core.hierarchy`) runs two engines, one lane per L1
+shard and one per L2, through the per-lane ``active`` mask and fetch
+times of :meth:`_Engine._serve`.
+
 Host arithmetic uses numpy f32 arrays with f32 constants; every operation
 rounds once, in the reference's order (numpy never fuses a multiply-add).
 """
@@ -65,7 +74,9 @@ from . import prng
 from .distributions import Exponential
 from .ranking import (EPS, POLICIES, PolicyParams, _f32, epi_stochastic_vacdh,
                       make_substrate)
-from .state import FIELD, F32_FIELDS, init_state, kahan_add, shift_times
+from .state import (FIELD, F32_FIELDS, SLOT_EMPTY, init_slot_state,
+                    init_state, kahan_add, shift_times, slot_home,
+                    slot_table_size)
 from .trace import RequestStream, Trace, auto_chunk_size, stream_of_trace
 
 # How many victims the rank-and-select pass pre-orders per commit; 0 scores
@@ -148,24 +159,43 @@ def _agg_mean_hat(agg_sum, agg_cnt, z_est):
     return np.where(agg_cnt > _ZERO, m, z_est)
 
 
+def eviction_pick(cached: torch.Tensor, ranks: torch.Tensor,
+                  ids: torch.Tensor | None) -> torch.Tensor:
+    """One eviction of the per-eviction loop: the lowest-ranked cached
+    entry of a lane, as int32 ``[index, score bits]``.  Ties break by
+    position (``ids=None``, the dense state, where position is the object
+    id) or by the smallest id (the slot table's ``key_tab``,
+    :func:`repro_torch.kernels.ref.tiebreak_argmin_ref`)."""
+    vr = torch.where(cached, ranks, float("inf"))
+    v = (torch.argmin(vr) if ids is None
+         else _ref.tiebreak_argmin_ref(vr, ids))
+    return torch.stack([v.to(torch.int32), vr[v].view(torch.int32)])
+
+
 class _Engine:
     """One simulation of ``L`` lanes over one object universe (see the
     module doc).  ``sizes`` and ``z_mean`` are ``[N]`` tensors on the
     engine's device; lane ``l`` runs ``policies[l]`` at ``capacities[l]``
     under ``params[l]`` with coin key ``keys[l]``."""
 
-    def __init__(self, sizes: torch.Tensor, z_mean: torch.Tensor,
+    def __init__(self, sizes: torch.Tensor, z_mean: torch.Tensor | None,
                  capacities, policies: tuple, params: tuple,
                  keys: tuple, estimate_z: bool, score_mode: str,
-                 evict_top):
+                 evict_top, plain_writes: bool | None = None,
+                 state=None):
         self.dev = sizes.device
         self.L = len(policies)
         self.pols = [POLICIES[n] for n in policies]
         self.params = tuple(params)
         self.estimate_z = estimate_z
         self.mode = score_mode
-        self._lane_write = (_ref.lane_scatter_batch_ref
-                            if score_mode == "ref" else lane_scatter_batch)
+        if plain_writes is None:
+            plain_writes = score_mode == "ref"
+        self._lane_write = (_ref.lane_scatter_batch_ref if plain_writes
+                            else lane_scatter_batch)
+        # the ids that break ties in the per-eviction argmin: None is the
+        # position (the dense state); the slot engine sets its key_tab
+        self.ids = None
         self.n = sizes.shape[0]
         self.top = min(EVICT_TOP if evict_top is None else int(evict_top),
                        self.n)
@@ -173,7 +203,8 @@ class _Engine:
         self.keys = [tuple(int(x) for x in k) for k in keys]
         self.sizes = sizes
         self.sizes_np = sizes.cpu().numpy()
-        st = init_state(self.n, capacities, z_mean, self.L, self.dev)
+        st = (init_state(self.n, capacities, z_mean, self.L, self.dev)
+              if state is None else state)
         self.st = st
         self.rows_f = st.values.view(_NF * self.L, self.n)
         self.rows_b = st.flags.view(-1, self.n)
@@ -316,6 +347,16 @@ class _Engine:
         return ranks, order, (blocks[0] if len(blocks) == 1
                               else torch.cat(blocks))
 
+    # --- the host heaps of outstanding fetches --------------------------------
+    def _push(self, li: int, comp: float, i: int) -> None:
+        """Lane ``li`` issued a fetch of object ``i`` completing at
+        ``comp``; ties pop by object id."""
+        heapq.heappush(self.heaps[li], (comp, i))
+
+    def _pop(self, li: int) -> int:
+        """The index of lane ``li``'s earliest outstanding fetch."""
+        return heapq.heappop(self.heaps[li])[-1]
+
     # --- GreedyDual cost ----------------------------------------------------
     def _gd_cost(self, f, size):
         """GreedyDual cost term for the object whose fields are ``f``."""
@@ -333,7 +374,7 @@ class _Engine:
         self.commits += 1
         j = np.zeros(L, np.int64)
         for li in np.flatnonzero(due):
-            j[li] = heapq.heappop(self.heaps[li])[1]
+            j[li] = self._pop(li)
         g, b = self._gather(j)
         f = lambda name: g[FIELD[name]]
         t_c = f("complete_t")
@@ -425,13 +466,9 @@ class _Engine:
                 self._scatter(evictions)
                 evictions = []
             lanes = np.flatnonzero(act)
-            picks = []
-            for li in lanes:
-                vr = torch.where(self.cached[li], ranks[li], float("inf"))
-                v = torch.argmin(vr)
-                picks.append(torch.stack([v.to(torch.int32),
-                                          vr[v].view(torch.int32)]))
-            back = self._read(torch.stack(picks))
+            back = self._read(torch.stack([
+                eviction_pick(self.cached[li], ranks[li], self.ids)
+                for li in lanes]))
             v = np.zeros(L, np.int64)
             vv = np.zeros(L, np.float32)
             v[lanes] = back[:, 0]
@@ -465,9 +502,17 @@ class _Engine:
             self._commit(due)
 
     # --- serve ----------------------------------------------------------------
-    def _serve(self, t, i: int, z) -> None:
-        """Serve the request (t, i); ``z`` is its fetch time if it misses."""
-        g, b = self._gather(i)
+    def _serve(self, t, i: int, z, active=None, gathered=None,
+               writes=()) -> np.ndarray:
+        """Serve the request (t, i); ``z`` (one or ``[L]``) is its fetch
+        time if it misses.  Returns each lane's latency.
+
+        ``active`` (bool ``[L]``) gates the serve per lane: a masked lane
+        writes back its own bits and keeps its scalars, and its latency is
+        computed all the same (the hierarchy reads it).  ``gathered`` is
+        the fields at ``i`` when the caller has them (no read-back then);
+        ``writes`` ride in the serve's write batch."""
+        g, b = self._gather(i) if gathered is None else gathered
         f = lambda name: g[FIELD[name]]
         is_hit, is_delayed = b[0], b[1]
         is_miss = ~(is_hit | is_delayed)
@@ -485,10 +530,6 @@ class _Engine:
             f("episode_delay") + np.where(is_delayed, lat, _ZERO))
         new_b = b.copy()
         new_b[1] = is_miss | is_delayed
-        self.min_complete[:] = np.minimum(self.min_complete,
-                                          np.where(is_miss, comp, _INF))
-        for li in np.flatnonzero(is_miss):
-            heapq.heappush(self.heaps[li], (float(comp[li]), i))
 
         # --- access statistics (every request) ------------------------------
         cnt = f("count")
@@ -505,15 +546,34 @@ class _Engine:
         if self.gd.any():
             hi = self.gd_clock + self._gd_cost(new, self.sizes_np[[i]])
             new[FIELD["gd_h"]] = np.where(self.gd & is_hit, hi, f("gd_h"))
-        self._scatter(self._point_writes(i, new, new_b))
+        if active is not None:
+            new = np.where(active, new, g)
+            new_b = np.where(active, new_b, b)
+            is_hit, is_delayed, is_miss = (is_hit & active,
+                                           is_delayed & active,
+                                           is_miss & active)
+        self.min_complete[:] = np.minimum(self.min_complete,
+                                          np.where(is_miss, comp, _INF))
+        for li in np.flatnonzero(is_miss):
+            self._push(li, float(comp[li]), i)
+        self._scatter(list(writes) + self._point_writes(i, new, new_b))
 
-        self.lat_sum[:], self.lat_comp[:] = kahan_add(self.lat_sum,
-                                                      self.lat_comp, lat)
+        lat_sum, lat_comp = kahan_add(self.lat_sum, self.lat_comp, lat)
+        if active is not None:
+            lat_sum = np.where(active, lat_sum, self.lat_sum)
+            lat_comp = np.where(active, lat_comp, self.lat_comp)
+        self.lat_sum[:], self.lat_comp[:] = lat_sum, lat_comp
         self.n_hits[:] = self.n_hits + is_hit
         self.n_delayed[:] = self.n_delayed + is_delayed
         self.n_misses[:] = self.n_misses + is_miss
+        return lat
 
     # --- the request feed ---------------------------------------------------
+    def _locate(self, obj: int):
+        """``(index, fields, writes)`` of object ``obj`` for its serve: in
+        the dense state its own index, fields read back by the serve."""
+        return obj, None, ()
+
     def feed(self, times: np.ndarray, objs: np.ndarray,
              z_draw: np.ndarray) -> None:
         """Replay the requests ``(times f32[k], objs int[k], z_draw
@@ -522,7 +582,9 @@ class _Engine:
             for r in range(times.shape[0]):
                 t = times[r:r + 1]
                 self._commit_due(t)
-                self._serve(t, int(objs[r]), z_draw[r:r + 1])
+                i, fields, writes = self._locate(int(objs[r]))
+                self._serve(t, i, z_draw[r:r + 1], gathered=fields,
+                            writes=writes)
         self.requests += times.shape[0]
 
     def shift(self, delta: np.float32) -> None:
@@ -534,8 +596,8 @@ class _Engine:
             return
         shift_times(self.st, float(delta))
         for li, h in enumerate(self.heaps):
-            self.heaps[li] = [(float(np.float32(c) - delta), j)
-                              for c, j in h]
+            self.heaps[li] = [(float(np.float32(e[0]) - delta), *e[1:])
+                              for e in h]
             heapq.heapify(self.heaps[li])
 
     def result(self) -> list[SimResult]:
@@ -549,6 +611,104 @@ class _Engine:
     def stats(self) -> dict:
         return {"requests": self.requests, "syncs": self.syncs,
                 "commits": self.commits, "scoring_commits": self.scored}
+
+
+# The fields of a slot at insertion: an object's first-touch values, as a
+# fresh dense state holds them (z_est is the object's prior, set per insert).
+_FRESH = np.zeros((_NF, 1), np.float32)
+for _name, _v in (("complete_t", _INF), ("last_access", -_INF),
+                  ("first_access", -_INF)):
+    _FRESH[FIELD[_name]] = _v
+
+
+class _SlotEngine(_Engine):
+    """The one-lane engine over an ``[S]`` slot table (``state_mode=
+    'slots'``): the dense machinery runs unchanged over the slot axis, and
+    a request's object is resolved to its slot, inserted on first touch,
+    before it is served.
+
+    Only the host inserts, so the probe table is the host array
+    ``key_np``; the card holds ``key_tab`` for the id tie-break of the
+    per-eviction argmin and the per-slot sizes for the scoring pass, both
+    written in the serve's write batch.  A first touch knows its slot's
+    fields (the first-touch values), so it serves without a read-back.
+    The host heap holds ``(complete_t, object id, slot)``: commits pop in
+    completion order with ties broken by object id, as the dense engine's
+    do, and ``inflight`` marks the slots with an outstanding fetch."""
+
+    def __init__(self, n_slots: int, slot_seed: int, sizes_full, z_prior,
+                 capacity, policy: str, params: PolicyParams, key,
+                 estimate_z: bool, score_mode: str, dev):
+        st = init_slot_state(n_slots, capacity, slot_seed, dev)
+        super().__init__(st.tab.sizes, None, capacity, (policy,),
+                         (params,), (key,), estimate_z, score_mode, 0,
+                         state=st.sim)
+        self.tab = st.tab
+        self.ids = st.tab.key_tab
+        self._key_rows = st.tab.key_tab.view(1, -1)
+        self._size_rows = st.tab.sizes.view(1, -1)
+        self.key_np = np.full(n_slots, SLOT_EMPTY, np.int64)
+        self.sizes_np = np.zeros(n_slots, np.float32)
+        self.inflight = np.zeros(n_slots, bool)
+        self.sizes_full = np.asarray(sizes_full, np.float32)
+        self.z_prior = np.asarray(z_prior, np.float32)
+        self.reclaims = 0
+
+    def _push(self, li, comp, i):
+        heapq.heappush(self.heaps[li], (comp, int(self.key_np[i]), i))
+        self.inflight[i] = True
+
+    def _pop(self, li):
+        i = heapq.heappop(self.heaps[li])[-1]
+        self.inflight[i] = False
+        return i
+
+    def _reclaim(self, home: int) -> int:
+        """The table is full: take the first slot in probe order from
+        ``home`` with no outstanding fetch (the home slot when every slot
+        has one, dropping its fetch).  Its occupant is evicted if cached
+        (one read-back), and a dropped fetch leaves the heap."""
+        order = (home + np.arange(self.n)) % self.n
+        idle = np.flatnonzero(~self.inflight[order])
+        v = int(order[idle[0]]) if idle.size else home
+        _, b = self._gather(v)
+        if b[0, 0]:
+            self.free[:] = self.free + self.sizes_np[v]
+            self.n_evictions[:] = self.n_evictions + _ONE
+        if self.inflight[v]:
+            h = [e for e in self.heaps[0] if e[-1] != v]
+            heapq.heapify(h)
+            self.heaps[0] = h
+            self.inflight[v] = False
+            self.min_complete[:] = h[0][0] if h else _INF
+        self.reclaims += 1
+        return v
+
+    def _locate(self, obj: int):
+        """``(slot, fields, writes)``: the object's slot; on a first touch
+        also its fields for the serve and the table writes."""
+        n = self.n
+        s = home = int(slot_home(obj, self.tab.seed, n))
+        for _ in range(n):
+            k = self.key_np[s]
+            if k == obj:
+                return s, None, ()
+            if k == SLOT_EMPTY:
+                break
+            s = s + 1 if s + 1 < n else 0
+        else:
+            s = self._reclaim(home)
+        size = self.sizes_full[obj]
+        self.key_np[s] = obj
+        self.sizes_np[s] = size
+        g = _FRESH.copy()
+        g[FIELD["z_est"]] = self.z_prior[obj]
+        writes = [(self._key_rows, [s], [obj], None, False),
+                  (self._size_rows, [s], [size], None, False)]
+        return s, (g, np.zeros((2, 1), bool)), writes
+
+    def stats(self) -> dict:
+        return {**super().stats(), "reclaims": self.reclaims}
 
 
 def host_requests(trace: Trace, lo: int = 0, hi: int | None = None):
@@ -593,7 +753,8 @@ def _run(trace, capacity, policies, params, key, estimate_z,
 def simulate(trace: Trace, capacity: float, policy: str = "stoch_vacdh",
              params: PolicyParams | None = None,
              key=(0, 0), estimate_z: bool = False, use_kernel=None,
-             evict_top: int | None = None, device=None,
+             evict_top: int | None = None, state_mode: str = "dense",
+             n_slots: int | None = None, slot_seed: int = 0, device=None,
              counters: dict | None = None) -> SimResult:
     """Run one policy over a trace on ``device`` (None: the card).
 
@@ -604,7 +765,17 @@ def simulate(trace: Trace, capacity: float, policy: str = "stoch_vacdh",
     stream (``(0, 0)`` is ``jax.random.key(0)``); the coins
     equal the JAX package's bit for bit (:mod:`.prng`).  ``counters``,
     when given, accumulates requests, device syncs, commits and scoring
-    commits."""
+    commits.  ``state_mode='slots'`` routes through the slot-table engine
+    (:func:`simulate_stream`), bitwise equal to dense mode whenever the
+    table never fills."""
+    if state_mode != "dense":
+        return simulate_stream(stream_of_trace(trace), capacity, policy,
+                               params, key, estimate_z, use_kernel,
+                               chunk_size="auto", rebase=False,
+                               evict_top=evict_top, state_mode=state_mode,
+                               n_slots=n_slots, slot_seed=slot_seed,
+                               device=device, counters=counters)
+    check_state_mode(state_mode, n_slots, evict_top)
     return _run(trace, capacity, (policy,), params, key, estimate_z,
                 use_kernel, evict_top, device, counters)[0]
 
@@ -658,13 +829,22 @@ def stream_chunks(times64: np.ndarray, chunk_size: int, rebase: bool):
         base = new_base
 
 
-def _check_dense(state_mode, n_slots, slot_seed) -> None:
-    if state_mode == "slots" or n_slots is not None or slot_seed != 0:
-        raise NotImplementedError(
-            "slot-table state (state_mode='slots', n_slots, slot_seed) is "
-            "not ported yet: ROADMAP queue 1, item 7")
-    if state_mode != "dense":
-        raise ValueError(f"state_mode={state_mode!r}; expected 'dense'")
+def check_state_mode(state_mode, n_slots, evict_top) -> None:
+    """The reference's guards on ``state_mode``, ``n_slots`` and
+    ``evict_top``."""
+    if state_mode not in ("dense", "slots"):
+        raise ValueError(f"state_mode={state_mode!r}; expected 'dense' or "
+                         f"'slots'")
+    if state_mode == "slots":
+        if evict_top not in (None, 0):
+            raise ValueError(
+                f"evict_top={evict_top} is not supported with "
+                f"state_mode='slots': the precomputed victim order breaks "
+                f"ties by slot, not by object id; the slot engine pins "
+                f"evict_top=0 (the id-tiebroken argmin, bitwise identical "
+                f"in dense results)")
+    elif n_slots is not None:
+        raise ValueError("n_slots applies only with state_mode='slots'")
 
 
 def simulate_stream(stream: RequestStream, capacity: float,
@@ -694,22 +874,37 @@ def simulate_stream(stream: RequestStream, capacity: float,
     Unlike the reference there are no padded tail steps (its pad exists
     to share one compiled graph; this loop stops at the last request) and
     no ``prefetch`` argument (there is no device queue to double-buffer:
-    the host walks the requests itself).  ``state_mode='slots'``,
-    ``n_slots`` and ``slot_seed`` raise ``NotImplementedError`` until the
-    slot-table state is ported."""
-    _check_dense(state_mode, n_slots, slot_seed)
+    the host walks the requests itself).
+
+    ``state_mode='slots'`` replays through a hashed open-addressing table
+    of ``n_slots`` slots (None: :func:`repro_torch.core.state.
+    slot_table_size` of the stream's distinct ids) instead of the dense
+    ``[N]`` state; it equals dense mode bit for bit whenever the table
+    never fills, whatever ``slot_seed`` (the hash seed).  It pins
+    ``evict_top=0``: the eq.-16 lane scores through ``ranking_scores``,
+    and every eviction is an argmin with ties broken by object id."""
+    check_state_mode(state_mode, n_slots, evict_top)
     dev = resolve_device(device)
     check_policies((policy,))
     if params is None:
         params = PolicyParams()
     chunk_size = resolve_chunk_size(chunk_size, stream.n_requests)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    eng = _Engine(f32(stream.sizes), f32(stream.z_mean), capacity,
-                  (policy,), (params,), (key,), estimate_z,
-                  resolve_score_mode(use_kernel, dev), evict_top)
+    mode = resolve_score_mode(use_kernel, dev)
     times64 = np.asarray(stream.times, np.float64)
     objs = np.asarray(stream.objs, np.int32)
     z_draw = np.asarray(stream.z_draw, np.float32)
+    if state_mode == "slots":
+        if n_slots is None:
+            n_slots = slot_table_size(int(np.unique(objs).size))
+        eng = _SlotEngine(int(n_slots), slot_seed, stream.sizes,
+                          stream.z_mean, capacity, policy, params, key,
+                          estimate_z, mode, dev)
+    else:
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                        device=dev)
+        eng = _Engine(f32(stream.sizes), f32(stream.z_mean), capacity,
+                      (policy,), (params,), (key,), estimate_z, mode,
+                      evict_top)
     for lo, hi, t_loc, delta in stream_chunks(times64, chunk_size, rebase):
         eng.shift(delta)
         eng.feed(t_loc, objs[lo:hi], z_draw[lo:hi])

@@ -1,4 +1,5 @@
-"""Simulator state for the delayed-hit cache: dense struct-of-arrays.
+"""Simulator state for the delayed-hit cache: dense struct-of-arrays, and
+the slot table that maps raw object ids onto a smaller state.
 
 Every per-object field is an ``[L, N]`` tensor: ``L`` lanes (independent
 simulations that share one trace, e.g. a policy and its LRU baseline) over a
@@ -11,6 +12,12 @@ is one launch of the lane-scatter kernel over the ``[12 * L, N]`` view
 The per-lane scalars (free capacity, clocks, Kahan sums, counters) are f32
 ``[L]`` tensors on the host: the simulator's control flow reads them every
 request, and keeping them there saves a device round trip each time.
+
+The slot table (:class:`SlotState`) is a fixed open-addressing table of
+``S`` slots over the same dense machinery: objects insert on first touch
+and keep their slot, so an ``[S]`` state replays a key space far larger
+than the device could hold densely.  Its hash (:func:`_hash_u32`), home
+slot and linear probe equal the JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .._device import resolve_device
 
 INF = float("inf")
 
@@ -127,3 +136,96 @@ def kahan_add(total, comp, x):
     t = total + y
     comp = (t - total) - y
     return t, comp
+
+
+# ---------------------------------------------------------------------------
+# The slot table: raw object ids onto S slots.  Slots are never vacated,
+# only reclaimed in place under table-full pressure, so the linear-probing
+# invariant holds and a table sized to the touched keys never reclaims.
+# ---------------------------------------------------------------------------
+SLOT_EMPTY = -1          # key_tab sentinel: no object resides in this slot
+_M32 = 0xFFFFFFFF
+
+
+def _hash_u32(x, seed) -> np.ndarray:
+    """The lowbias32 avalanche finalizer of ``x`` (ids, wrapped to uint32)
+    xor ``seed``, in uint32 arithmetic: a uint32 array shaped as ``x``."""
+    x = np.asarray(x).astype(np.uint32) ^ np.uint32(int(seed) & _M32)
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+        x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def slot_home(obj, seed, n_slots: int) -> np.ndarray:
+    """The probe start slot of ``obj`` (int32, shaped as ``obj``)."""
+    return (_hash_u32(obj, seed) % np.uint32(n_slots)).astype(np.int32)
+
+
+def slot_probe(key_tab, obj: int, seed):
+    """Linear-probe lookup in the host table ``key_tab`` (int32 [S]):
+    ``(slot, found, empty)``.
+
+    Walks from the home slot until it meets ``obj`` (``found``) or the
+    first empty slot (``empty``, the insertion point).  A full wrap with
+    neither means the table is full: both flags are False and ``slot`` is
+    the home slot."""
+    tab = np.asarray(key_tab)
+    n = tab.shape[0]
+    s = int(slot_home(obj, seed, n))
+    for _ in range(n):
+        k = int(tab[s])
+        if k == obj or k == SLOT_EMPTY:
+            return s, k == obj, k == SLOT_EMPTY
+        s = s + 1 if s + 1 < n else 0
+    return s, False, False
+
+
+def slot_table_size(n_distinct: int, load: float = 0.5) -> int:
+    """The next power of two holding ``n_distinct`` keys at most at
+    ``load`` occupancy (floor 64).  At the default 0.5 the table always has
+    headroom, so reclaim never fires and slot-mode results equal dense mode
+    bit for bit."""
+    if n_distinct < 0:
+        raise ValueError(f"n_distinct={n_distinct} must be >= 0")
+    if not 0.0 < load <= 1.0:
+        raise ValueError(f"load={load} must be in (0, 1]")
+    need = max(-(-n_distinct // load) if n_distinct else 1, 1)
+    return 1 << max(6, (int(need) - 1).bit_length())
+
+
+@dataclasses.dataclass
+class SlotView:
+    """The id->slot map beside an ``[S]`` :class:`SimState`, on the
+    device: the scoring pass reads the per-slot sizes, and the slot
+    engine's id tie-break (:func:`repro_torch.kernels.ref.
+    tiebreak_argmin_ref`) reads the ids."""
+
+    key_tab: torch.Tensor        # int32 [S]: object id in each slot (SLOT_EMPTY: none)
+    sizes: torch.Tensor          # f32 [S]: that object's size (0 while empty)
+    seed: int                    # uint32 hash seed (invisible in results)
+
+
+@dataclasses.dataclass
+class SlotState:
+    """A dense one-lane :class:`SimState` over ``S`` slots and the
+    :class:`SlotView` that maps raw ids onto them."""
+
+    sim: SimState
+    tab: SlotView
+
+
+def init_slot_state(n_slots: int, capacity, seed: int = 0,
+                    device=None) -> SlotState:
+    """A fresh one-lane slot state with an all-empty table on ``device``
+    (None: the card).  Per-slot ``z_est`` is written at insertion, from
+    the inserted object's prior (the value dense mode starts from)."""
+    if n_slots < 1:
+        raise ValueError(f"n_slots={n_slots} must be >= 1")
+    dev = resolve_device(device)
+    zeros = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+    sim = init_state(n_slots, capacity, zeros, 1, dev)
+    tab = SlotView(key_tab=torch.full((n_slots,), SLOT_EMPTY,
+                                      dtype=torch.int32, device=dev),
+                   sizes=zeros.clone(), seed=int(seed) & _M32)
+    return SlotState(sim=sim, tab=tab)

@@ -1,12 +1,13 @@
 """Figure driver: one job per paper figure, run on the card unless
 ``--device cpu``.
 
-    python3 -m repro_torch.figures.run [--only fig2,fig3,fig4,fig5]
+    python3 -m repro_torch.figures.run [--only fig2,fig3,fig4,fig5,fig6]
         [--full] [--compare] [--device cpu]
 
 Prints each job's rows as CSV lines and writes them to
-``repro_torch/figures/results/<job>.csv``; ``--compare`` adds fig4's
-per-point-loop vs grid timing (``fig4_sweep_speedup.csv``).  Prints the
+``repro_torch/figures/results/<job>.csv``; ``--compare`` adds fig4's and
+fig6's per-point-loop vs grid timings (``fig4_sweep_speedup.csv``,
+``fig6_sweep_speedup.csv``).  Prints the
 card's name and power limit first when it runs on one.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import subprocess
 import sys
 import time
 
-JOBS = ("fig3", "fig2", "fig4", "fig5")
+JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6")
 
 
 def main(argv=None) -> int:
@@ -26,7 +27,8 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="paper-scale sizes (slower)")
     ap.add_argument("--compare", action="store_true",
-                    help="with fig4: time the per-point loop vs the grids")
+                    help="with fig4 and fig6: time the per-point loop vs "
+                         "the grids")
     ap.add_argument("--device", default=None,
                     help="cpu to run the plain versions on the CPU "
                          "(default: the card)")
@@ -38,7 +40,7 @@ def main(argv=None) -> int:
 
     from .._device import resolve_device
     from . import (fig2_synthetic, fig3_trace_stats, fig4_sensitivity,
-                   fig5_real_traces)
+                   fig5_real_traces, fig6_hierarchy)
     from .common import emit
 
     dev = resolve_device(args.device)
@@ -48,6 +50,7 @@ def main(argv=None) -> int:
                              text=True, timeout=60)
         print(smi.stdout.strip(), flush=True)
     d, full = args.device, args.full
+    fig6_timings = []
     jobs = {
         "fig3": lambda: emit(fig3_trace_stats.run(device=d),
                              "fig3_trace_stats"),
@@ -57,6 +60,9 @@ def main(argv=None) -> int:
                              "fig4_sensitivity"),
         "fig5": lambda: emit(fig5_real_traces.run(full=full, device=d),
                              "fig5_real_traces"),
+        "fig6": lambda: emit(fig6_hierarchy.run(
+            full=full, compare=args.compare, device=d,
+            timings=fig6_timings), "fig6_hierarchy"),
     }
     for name in JOBS:
         if name not in want:
@@ -67,6 +73,8 @@ def main(argv=None) -> int:
         if name == "fig4" and args.compare:
             emit(fig4_sensitivity.run_compare(full=full, device=d),
                  "fig4_sweep_speedup")
+        if name == "fig6" and args.compare:
+            emit(fig6_timings, "fig6_sweep_speedup")
         print(f"[{name}] done in {time.perf_counter() - t0:.1f}s",
               flush=True)
     return 0

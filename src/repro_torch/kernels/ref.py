@@ -54,6 +54,22 @@ def ranking_scores_ref(lam, z, resid, sizes, cached, omega: float):
     return f, idx.to(torch.int32), masked[idx]
 
 
+def tiebreak_argmin_ref(vals, ids):
+    """Argmin over ``vals`` with ties broken by the smallest ``ids`` entry:
+    the minimum value first, then the smallest id among the minima.
+
+    ``torch.argmin`` breaks ties by position, which is the object id in the
+    dense state.  The slot-table state keeps objects at hash-dependent
+    slots, so its reductions pass the table's ids (``key_tab``) here: with
+    ``ids[s] == s`` this is ``torch.argmin(vals)``, and under any slot
+    permutation it picks the slot of the object the dense argmin picks.
+    Callers mask ineligible entries to +inf, so a sentinel id can win only
+    when every entry is masked, where the caller's check fails closed."""
+    m = torch.min(vals)
+    big = torch.iinfo(ids.dtype).max
+    return torch.argmin(torch.where(vals == m, ids, big))
+
+
 def victim_order_ref(scores, cached, top: int):
     """Masked ascending victim order: the ``top`` lowest-scored cached
     objects in ascending ``(score, index)`` order, as ``(idx i32[top],

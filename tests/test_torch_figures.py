@@ -19,7 +19,8 @@ from repro_torch.convert import trace_from_arrays
 from repro_torch.core import PolicyParams
 from repro_torch.data.traces import SURROGATES, surrogate_trace
 from repro_torch.figures import (common, fig2_synthetic, fig3_trace_stats,
-                                 fig4_sensitivity, fig5_real_traces, run)
+                                 fig4_sensitivity, fig5_real_traces,
+                                 fig6_hierarchy, run)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASE = ["policy", "latency", "improvement_vs_lru", "hit_ratio",
@@ -92,6 +93,69 @@ def test_fig5_rows_have_the_jax_drivers_keys():
     for r in rows:
         np.testing.assert_allclose(r["capacity"], 0.1 * r["footprint_mb"],
                                    rtol=1e-3)
+
+
+FIG6_KEYS = ("route", "n_shards", "hop_dist", "hop_cv", "l2_capacity",
+             "policy", "total_latency", "improvement_vs_lru", "l1_hit_ratio",
+             "l2_hit_ratio", "sweep_s")
+
+
+def test_fig6_rows_have_the_jax_drivers_keys_and_laws():
+    from benchmarks import fig6_hierarchy as jfig6
+    assert [n for n, _ in fig6_hierarchy.HOP_DISTS] == \
+        [n for n, _ in jfig6.HOP_DISTS]
+    for (_, d), (_, jd) in zip(fig6_hierarchy.HOP_DISTS, jfig6.HOP_DISTS):
+        assert round(fig6_hierarchy._cv(d), 3) == round(jfig6._cv(jd), 3)
+    timings, grids = [], []
+    rows = fig6_hierarchy.run(device="cpu", n_requests=150, compare=True,
+                              timings=timings, grids=grids)
+    assert _keys(rows) == {FIG6_KEYS}
+    assert len(rows) == 2 * 2 * 4 * 2 * 3
+    assert {(r["route"], r["n_shards"]) for r in rows} == {
+        ("hash", 1), ("hash", 4), ("random", 1), ("random", 4)}
+    assert all(r["improvement_vs_lru"] == 0.0 for r in rows
+               if r["policy"] == "lru")
+    assert all(r["l2_hit_ratio"] == 0.0 for r in rows
+               if r["l2_capacity"] == 0.0)
+    assert [(t["route"], t["n_shards"]) for t in timings] == [
+        ("hash", 1), ("hash", 4), ("random", 1), ("random", 4)]
+    assert all(t["n_points"] == 24 and t["per_point_s"] > 0
+               and t["speedup"] > 0 for t in timings)
+    assert [g.n_shards for g in grids] == [1, 4, 1, 4]
+
+
+def test_fig6_grid_matches_the_jax_grid_on_the_same_traces():
+    """The JAX hierarchy grid on the port's fig6 traces (random route, four
+    shards, the four hop laws) gives the port's grid: counters exactly,
+    latency to rtol=1e-5."""
+    from repro.core import PolicyParams as JPolicyParams
+    from repro.core import sweep_hier_grid as jsweep_hier_grid
+    from repro.core.hierarchy import HierTrace as JHierTrace
+    grids = []
+    fig6_hierarchy.run(device="cpu", n_requests=200, grids=grids)
+    g = grids[3]
+    # the traces the driver built for (random, 4), rebuilt the same way
+    base = fig6_hierarchy.synthetic_trace(
+        fig6_hierarchy.torch.Generator().manual_seed(0),
+        fig6_hierarchy._spec(False, 200), device="cpu")
+    traces = [fig6_hierarchy.make_hier_trace(
+        base, 4, generator=fig6_hierarchy.torch.Generator().manual_seed(7),
+        hop_mean=0.01, hop_dist=d, route="random")
+        for _, d in fig6_hierarchy.HOP_DISTS]
+    jtraces = [JHierTrace(*(jax.numpy.asarray(np.asarray(x)) for x in (
+        t.times, t.objs, t.shards, t.sizes, t.z_mean, t.z_draw,
+        t.hop_draw)), jax.numpy.float32(t.hop_mean)) for t in traces]
+    jg = jsweep_hier_grid(jtraces, 4, 400.0, [0.0, 2000.0],
+                          list(fig6_hierarchy.POLICIES),
+                          JPolicyParams(omega=1.0), estimate_z=True)
+    for tier in ("per_shard", "l2"):
+        got, want = getattr(g.result, tier), getattr(jg.result, tier)
+        for f in ("n_hits", "n_delayed", "n_misses", "n_evictions"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)))
+        np.testing.assert_allclose(got.total_latency.numpy(),
+                                   np.asarray(want.total_latency),
+                                   rtol=1e-5)
 
 
 def test_run_writes_results_and_rejects_unknown_jobs(tmp_path, monkeypatch):

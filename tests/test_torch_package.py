@@ -14,9 +14,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.convert import trace_from_arrays
-from repro_torch.core import (latency_improvement, make_trace, simulate,
-                              simulate_chunked, simulate_stream,
-                              stream_of_trace, sweep_grid, trace_of_stream)
+from repro_torch.core import (latency_improvement, make_hier_trace,
+                              make_trace, simulate, simulate_chunked,
+                              simulate_hier, simulate_hier_chunked,
+                              simulate_stream, stream_of_trace, sweep_grid,
+                              sweep_hier_grid, trace_of_stream)
 from repro_torch.core.simulator import resolve_score_mode
 from repro_torch.kernels import _build
 
@@ -47,7 +49,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.figures.fig2_synthetic, "
         "repro_torch.figures.fig3_trace_stats, "
         "repro_torch.figures.fig4_sensitivity, "
-        "repro_torch.figures.fig5_real_traces, repro_torch.figures.run\n"
+        "repro_torch.figures.fig5_real_traces, repro_torch.figures.run, "
+        "repro_torch.figures.fig6_hierarchy, repro_torch.core.hierarchy, "
+        "repro_torch.core.refsim, repro_torch.core.state\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -100,14 +104,25 @@ def test_entry_points_raise_without_a_card():
         simulate_chunked(_cpu_trace(), 1.0, "lru")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trace_of_stream(stream)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_stream(stream, 1.0, "lru", state_mode="slots")
+    hier = make_hier_trace(_cpu_trace(), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_hier(hier, 2, 1.0, 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_hier_chunked(hier, 2, 1.0, 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_hier_grid(hier, 2, 1.0, 1.0, ["lru", "stoch_vacdh"])
 
 
 def test_figure_drivers_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")
     from repro_torch.figures import (fig2_synthetic, fig3_trace_stats,
-                                     fig4_sensitivity, fig5_real_traces, run)
+                                     fig4_sensitivity, fig5_real_traces,
+                                     fig6_hierarchy, run)
     for fn in (lambda: fig2_synthetic.run(n_requests=10),
+               lambda: fig6_hierarchy.run(n_requests=10),
                fig3_trace_stats.run,
                lambda: fig4_sensitivity.run(n_requests=10),
                lambda: fig4_sensitivity.run_compare(n_requests=10),

@@ -170,10 +170,13 @@ def test_epoch_time_compacted_stream_matches_jax():
 
 def test_slot_mode_and_chunk_size_errors():
     s = stream_of_trace(_trace())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        simulate_stream(s, 10.0, state_mode="slots", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="evict_top"):
+        simulate_stream(s, 10.0, state_mode="slots", evict_top=8,
+                        device="cpu")
+    with pytest.raises(ValueError, match="n_slots"):
         simulate_chunked(_trace(), 10.0, n_slots=64, device="cpu")
+    with pytest.raises(ValueError, match="state_mode"):
+        simulate_stream(s, 10.0, state_mode="sparse", device="cpu")
     with pytest.raises(ValueError, match="chunk_size"):
         simulate_stream(s, 10.0, chunk_size=0, device="cpu")
     with pytest.raises(ValueError, match="auto"):

@@ -112,7 +112,22 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    5% of the touched footprint each) over an LRU L2 (20%), exponential
    hops of mean 0.01 s, over phase 3's 2^20-object universe (5 lanes,
    262 MB of state) for the same 5,000 requests, kernel writes against
-   plain writes bit for bit, with req/s and syncs per request.
+   plain writes bit for bit, with req/s and syncs per request;
+13. serving: the prefix-cache engine on a 600-request flash crowd on the
+   card against the CPU (every counter, the latency sum and the sketch);
+   (a) ``bench_serving.run(smoke=True)`` (flash_crowd, degraded_replica
+   and origin_outage at 3,000 requests, hedged and not, flash_crowd
+   through an L1 + L2, SLO bisections) through the kernels and through
+   the plain versions, every row field but ``bench_serving.MEASURED``
+   equal, with req/s, syncs per request and ranking and lane-scatter
+   launches an admission; (b) flash_crowd at ``SERVE_REQUESTS`` = 20,000
+   requests over ``N_KEYS`` keys through a ``SERVE_OBJECTS`` = 2^18-object
+   prefix table (25% of the footprint, hedged), eq. 16 (through
+   ``ranking_victim_order``) and LRU (its epilogue and a sort on the
+   card), kernels against plain versions in every (outcome, latency)
+   pair and counter, with req/s, syncs per request and the mirror's
+   bytes.  A kernel run must launch ``ranking_victim_order`` at least
+   once an eq.-16 admission and the lane scatter at least once a rank.
 
 Each main-path run starts from zeroed launch counts, prints its
 lane-scatter launches per request, and must launch every kernel it
@@ -1764,6 +1779,151 @@ def phase_hier(launches: dict) -> None:
         f"L2 arrivals {l2_arr} = L1 misses, L2 hits {int(a.l2.n_hits)}")
 
 
+# --- phase 13: the serving engine --------------------------------------------
+SERVE_REQUESTS = 20_000       # phase 13(b)'s flash crowd
+SERVE_OBJECTS = 1 << 18       # phase 13(b)'s prefix table
+
+
+def serve_cost_check(label: str, admits: int, ranks: int, rank_launches: int,
+                     scatter_launches: int, eq16: bool) -> None:
+    """The launch rules of a kernel run of the serving engine: at least one
+    lane-scatter launch a rank (each rank flushes the mirror first), a
+    rank an admission, and for eq.-16 caches at least one
+    ``ranking_victim_order`` launch an admission."""
+    if scatter_launches < ranks or ranks < admits:
+        raise AssertionError(f"{label}: {scatter_launches} lane-scatter "
+                             f"launches for {ranks} ranks, {admits} "
+                             f"admissions")
+    if eq16 and rank_launches < admits:
+        raise AssertionError(f"{label}: {rank_launches} ranking launches "
+                             f"for {admits} admissions")
+
+
+def phase_serving(launches: dict) -> None:
+    """13: (a) ``bench_serving.run(smoke=True)`` through the kernels and
+    through the plain versions, rows equal; (b) a flash crowd over
+    ``N_KEYS`` keys through a 2^18-object prefix table, eq. 16 and LRU,
+    kernels against plain versions request by request."""
+    import torch
+    from repro_torch.data.scenarios import make_scenario
+    from repro_torch.figures import bench_serving as bs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def run(fn):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    # the card against the CPU on a small workload
+    w = make_scenario("flash_crowd", seed=3, n_requests=600, n_keys=80)
+    small = []
+    for dev in ("cuda", "cpu"):
+        eng = bs._make_engine(w, hedging=True, hier=False, device=dev)
+        sq, depth, _, n, shed, failed = bs._drive(w, eng)
+        small.append((eng.stats.as_dict(), sq.counts.tolist(), sq.sum,
+                      depth.tolist(), n, shed, failed))
+    if small[0] != small[1]:
+        raise AssertionError(f"13: card {small[0]} != cpu {small[1]}")
+    log("phase 13: flash crowd, 600 requests: card == CPU (every counter, "
+        "the latency sum and the sketch)")
+
+    res = {}
+    for mode in (None, "ref"):
+        cost = {}
+        rows, dt, lc = run(lambda mode=mode: bs.run(
+            smoke=True, use_kernel=mode, counters=cost,
+            out=os.path.join(ROOT, "src", "repro_torch", "figures",
+                             "results", f"bench_serving_{mode or 'kernel'}"
+                                        ".json")))
+        res[mode] = rows
+        if mode is None:
+            serve_cost_check("13a kernels", cost["admits"], cost["ranks"],
+                             cost["rank_launches"], cost["scatter_launches"],
+                             True)
+            add_launches(launches, lc)
+        elif any(lc.values()):
+            raise AssertionError(f"13a plain run launched kernels: {lc}")
+        a = cost["admits"]
+        log(f"phase 13a: bench_serving.run(smoke=True, use_kernel="
+            f"{mode!r}): {dt:.2f} s; measured segments "
+            f"{cost['requests']} requests in {cost['seconds']:.2f} s = "
+            f"{cost['requests'] / cost['seconds']:.1f} req/s, "
+            f"{cost['syncs'] / cost['requests']:.4f} syncs/request, "
+            f"{a} admissions, {cost['ranks'] / a:.4f} ranks, "
+            f"{cost['rank_launches'] / a:.4f} ranking and "
+            f"{cost['scatter_launches'] / a:.4f} lane-scatter launches an "
+            f"admission; launches over the run {lc}")
+    strip = lambda r: {k: v for k, v in r.items() if k not in bs.MEASURED}
+    if [strip(r) for r in res[None]] != [strip(r) for r in res["ref"]]:
+        bad = [(strip(a), strip(b)) for a, b in zip(res[None], res["ref"])
+               if strip(a) != strip(b)]
+        raise AssertionError(f"13a: kernel rows != plain rows: {bad[:2]}")
+    for r in res[None]:
+        if r["mode"] == "slo_search":
+            log(f"phase 13a: {r['scenario']:16s} slo_search hedged="
+                f"{r['hedging']!s:5s} {r['req_s_at_slo']} req/s at the "
+                f"{r['slo_ms']} ms p99 (x{r['rate_mult_at_slo']})")
+            continue
+        log(f"phase 13a: {r['scenario']:16s} {r['mode']:6s} hedged="
+            f"{r['hedging']!s:5s} p50/p99/p99.9 {r['p50_ms']}/"
+            f"{r['p99_ms']}/{r['p999_ms']} ms, {r['drive_req_per_s']} "
+            f"req/s, {r['syncs_per_req']} syncs, "
+            f"{r['rank_launches_per_req']} ranking and "
+            f"{r['scatter_launches_per_req']} lane-scatter launches a "
+            f"request, shed {r['shed']}, failed {r['failed']}, retries "
+            f"{r['retries']}")
+    log(f"phase 13a: {len(res[None])} rows, kernels == plain in every "
+        f"field but {bs.MEASURED}")
+
+    w = make_scenario("flash_crowd", seed=0, n_requests=SERVE_REQUESTS,
+                      n_keys=N_KEYS)
+    foot = bs._footprint(w)
+    reqs = [(float(t), f"p{k}", int(n))
+            for t, k, n in zip(w.times, w.keys, w.n_tokens)]
+    log(f"phase 13b: flash crowd, {SERVE_REQUESTS} requests over {N_KEYS} "
+        f"keys ({len(set(w.keys.tolist()))} touched), capacity 25% of the "
+        f"{foot:.0f}-token footprint, {SERVE_OBJECTS}-object table, hedged")
+    for policy in ("stoch_vacdh", "lru"):
+        out = {}
+        for mode in (None, "ref"):
+            eng = bs._make_engine(w, hedging=True, hier=False,
+                                  policy=policy, use_kernel=mode,
+                                  max_objects=SERVE_OBJECTS)
+            got, dt, lc = run(lambda eng=eng: [eng.serve(*q) for q in reqs])
+            c = eng.cache.counters
+            out[mode] = (got, eng.stats.as_dict())
+            if mode is None:
+                serve_cost_check(f"13b {policy}", c["admits"], c["ranks"],
+                                 lc["ranking_victim_order"],
+                                 lc["lane_scatter"], policy == "stoch_vacdh")
+                add_launches(launches, lc)
+            elif any(lc.values()):
+                raise AssertionError(f"13b plain run launched: {lc}")
+            log(f"phase 13b: {policy} use_kernel={mode!r}: {dt:.2f} s, "
+                f"{SERVE_REQUESTS / dt:.1f} req/s, "
+                f"{c['syncs'] / SERVE_REQUESTS:.4f} syncs/request, "
+                f"{c['admits']} admissions, {c['ranks']} ranks, "
+                f"{c['flushed'] / max(c['flushes'], 1):.2f} objects a "
+                f"flush, mirror {eng.cache.mirror_bytes} bytes, launches "
+                f"{lc}")
+        if out[None] != out["ref"]:
+            k = next((i for i, (a, b) in enumerate(zip(out[None][0],
+                                                       out["ref"][0]))
+                      if a != b), None)
+            raise AssertionError(f"13b {policy}: kernels != plain (first "
+                                 f"request {k}): {out[None][1]} vs "
+                                 f"{out['ref'][1]}")
+        st = out[None][1]
+        log(f"phase 13b: {policy}: kernels == plain in every (outcome, "
+            f"latency) and counter: hits {st['hits']}, delayed "
+            f"{st['delayed_hits']}, misses {st['misses']}, evictions "
+            f"{st['evictions']}, hedges {st['hedges']}, mean latency "
+            f"{st['mean_latency']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=20_000,
@@ -1807,8 +1967,9 @@ def main() -> int:
     timed("10", phase_stream, launches, grids)
     timed("11", phase_slots, launches)
     timed("12", phase_hier, launches)
+    timed("13", phase_serving, launches)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3 and 5-12: "
+    log(f"launches over the main-path runs of phases 2-3 and 5-13: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

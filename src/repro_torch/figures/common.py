@@ -1,4 +1,4 @@
-"""Shared figure utilities: CSV output and the improvement tables.
+"""Shared figure utilities: CSV and JSON output and the improvement tables.
 
 Rows have the JAX package's schema (``benchmarks/common.py``): policy,
 latency, improvement_vs_lru (paper eq. 17), hit_ratio, delayed_ratio,
@@ -8,8 +8,14 @@ with several).  CSVs go to ``results/`` beside this module.
 from __future__ import annotations
 
 import csv
+import json
+import os
+import platform
 import time
+from datetime import datetime, timezone
 from pathlib import Path
+
+import torch
 
 from ..core import PolicyParams, SimResult, Trace, simulate, sweep_grid
 
@@ -32,6 +38,40 @@ def emit(rows: list[dict], name: str, echo: bool = True) -> Path:
     if echo:
         for r in rows:
             print(",".join(str(v) for v in r.values()), flush=True)
+    return path
+
+
+def write_bench_json(name: str, payload: dict, path: Path | str | None = None,
+                     headline: dict | None = None) -> Path:
+    """Write a benchmark's JSON snapshot to ``results/<name>`` (or to
+    ``path``), stamped with the environment: the device's name, torch and
+    CUDA versions, CPU count, platform and UTC time.  ``headline`` (a few
+    defining numbers) is appended to the file's ``history``, which is
+    carried over from the file on disk, so ``rows`` describe the latest
+    run and ``history`` every run's headline."""
+    payload = dict(payload)
+    dev = torch.device(payload.get("device") or "cpu")
+    payload.setdefault("device_name", torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else platform.processor()
+                       or platform.machine())
+    payload.setdefault("torch_version", torch.__version__)
+    payload.setdefault("cuda_version", torch.version.cuda)
+    payload.setdefault("cpu_count", os.cpu_count())
+    payload.setdefault("platform", platform.platform())
+    payload.setdefault("generated_utc", datetime.now(timezone.utc)
+                       .isoformat(timespec="seconds"))
+    path = Path(path) if path is not None else RESULTS_DIR / name
+    if headline is not None:
+        try:
+            history = list(json.loads(path.read_text()).get("history", []))
+        except (OSError, ValueError):
+            history = []
+        history.append(dict(date_utc=payload["generated_utc"],
+                            device_name=payload["device_name"], **headline))
+        payload["history"] = history
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(payload, indent=2) + "\n")
+    print(f"# wrote {path}", flush=True)
     return path
 
 

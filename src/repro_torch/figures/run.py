@@ -1,13 +1,15 @@
-"""Figure driver: one job per paper figure, run on the card unless
-``--device cpu``.
+"""Figure driver: one job per paper figure, and the serving benchmark,
+run on the card unless ``--device cpu``.
 
-    python3 -m repro_torch.figures.run [--only fig2,fig3,fig4,fig5,fig6]
-        [--full] [--compare] [--device cpu]
+    python3 -m repro_torch.figures.run
+        [--only fig2,fig3,fig4,fig5,fig6,serving] [--full] [--smoke]
+        [--compare] [--device cpu]
 
 Prints each job's rows as CSV lines and writes them to
 ``repro_torch/figures/results/<job>.csv``; ``--compare`` adds fig4's and
 fig6's per-point-loop vs grid timings (``fig4_sweep_speedup.csv``,
-``fig6_sweep_speedup.csv``).  Prints the
+``fig6_sweep_speedup.csv``).  ``serving`` also writes
+``results/bench_serving.json``; ``--smoke`` sizes it small.  Prints the
 card's name and power limit first when it runs on one.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ import subprocess
 import sys
 import time
 
-JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6")
+JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6", "serving")
 
 
 def main(argv=None) -> int:
@@ -26,6 +28,8 @@ def main(argv=None) -> int:
                     help="comma list of " + ",".join(JOBS))
     ap.add_argument("--full", action="store_true",
                     help="paper-scale sizes (slower)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serving: three scenarios at small sizes")
     ap.add_argument("--compare", action="store_true",
                     help="with fig4 and fig6: time the per-point loop vs "
                          "the grids")
@@ -39,8 +43,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown jobs {sorted(unknown)}; known: {list(JOBS)}")
 
     from .._device import resolve_device
-    from . import (fig2_synthetic, fig3_trace_stats, fig4_sensitivity,
-                   fig5_real_traces, fig6_hierarchy)
+    from . import (bench_serving, fig2_synthetic, fig3_trace_stats,
+                   fig4_sensitivity, fig5_real_traces, fig6_hierarchy)
     from .common import emit
 
     dev = resolve_device(args.device)
@@ -63,6 +67,8 @@ def main(argv=None) -> int:
         "fig6": lambda: emit(fig6_hierarchy.run(
             full=full, compare=args.compare, device=d,
             timings=fig6_timings), "fig6_hierarchy"),
+        "serving": lambda: emit(bench_serving.run(
+            full=full, smoke=args.smoke, device=d), "bench_serving"),
     }
     for name in JOBS:
         if name not in want:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the port's replay spends its time on the card.
+"""Where the port's replay and serving engine spend their time on the card.
 
     PYTHONPATH=src python3 -m repro_torch.profile_replay [--requests N]
     PYTHONPATH=src python3 -m repro_torch.profile_replay --grid [--requests N]
+    PYTHONPATH=src python3 -m repro_torch.profile_replay --serving [--requests N]
 
 For the two one-lane cells of chip_smoke.py (fig2: eq. 16 vs LRU as two
-lanes over 100 objects; deploy: eq.-16 simulate over 2^20 objects), or
-with ``--grid`` for its phase-9(b) grid (lru / vacdh / stoch_vacdh x omega
-{0.5, 1, 2} x capacity {5%, 10%}: 18 lanes over 2^20 objects), replays a
-window of requests and prints one JSON line per cell with:
+lanes over 100 objects; deploy: eq.-16 simulate over 2^20 objects), with
+``--grid`` for its phase-9(b) grid (lru / vacdh / stoch_vacdh x omega
+{0.5, 1, 2} x capacity {5%, 10%}: 18 lanes over 2^20 objects), or with
+``--serving`` for phase 13(b)'s prefix table (the flash crowd over
+200,000 keys through a 2^18-object ``ServeEngine``, eq. 16 and LRU),
+replays a window of requests and prints one JSON line per cell with:
 
 - wall seconds and requests per second (host clock, ending in a sync),
   device syncs and kernel launches per request (and, for the grid,
@@ -18,9 +21,11 @@ window of requests and prints one JSON line per cell with:
   idle share ``1 - busy / wall`` against the unprofiled wall time;
 - host seconds inside the replay engine's parts (gather = read-back,
   scatter = packing + the batched lane-scatter launch, select = the
-  scoring pass + victim order, rest = host control flow), from wrappers
-  around the engine's methods; they include the time spent waiting on
-  the device at each read-back.
+  scoring pass + victim order, rest = host control flow), or the prefix
+  cache's (flush = the mirror's lane-scatter batch, ranks = the
+  substrate + the rank's launches, victims = the read-back, rest = the
+  event loop), from wrappers around their methods; they include the time
+  spent waiting on the device at each read-back.
 
 Prints the card's name and power limit (as nvidia-smi gives them) first.
 Needs one CUDA card; exits non-zero without one.
@@ -58,16 +63,21 @@ def _device_seconds(prof) -> float:
     return total_us / 1e6
 
 
-def profile_cell(label, run):
+def profile_cell(label, run, cls=None, names=("_gather", "_scatter",
+                                              "_select"), nested=False):
+    """Profile ``run()`` (which returns its counters) as one cell; host
+    parts are the seconds inside ``cls``'s methods ``names`` (default the
+    replay engine's), or, when ``nested``, each method less the one
+    before it (``names`` from the innermost call out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from .core import simulator
     from .kernels import launch_counts, reset_launch_counts
 
+    cls = simulator._Engine if cls is None else cls
     run()                                    # warm-up: builds, allocator
     acc = {}
-    orig = {n: _timed(simulator._Engine, n, acc)
-            for n in ("_gather", "_scatter", "_select")}
+    orig = {n: _timed(cls, n, acc) for n in names}
     try:
         reset_launch_counts()
         torch.cuda.synchronize()
@@ -78,7 +88,7 @@ def profile_cell(label, run):
         launched = launch_counts()
     finally:
         for n, fn in orig.items():
-            setattr(simulator._Engine, n, fn)
+            setattr(cls, n, fn)
     # the device work of a second, profiled replay (the profiler slows the
     # host, so wall time comes from the unprofiled one above)
     with profile(activities=[ProfilerActivity.CPU,
@@ -90,6 +100,9 @@ def profile_cell(label, run):
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0),
                  key=lambda x: -x[1])[:8]
+    if nested:
+        inner = [0.0] + [acc.get(n, 0.0) for n in names]
+        acc = {n: inner[k + 1] - inner[k] for k, n in enumerate(names)}
     parts = {k.lstrip("_"): round(v, 6) for k, v in acc.items()}
     parts["rest"] = round(wall - sum(acc.values()), 6)
     out = {"cell": label, "requests": counts["requests"],
@@ -109,12 +122,38 @@ def profile_cell(label, run):
     print(json.dumps(out), flush=True)
 
 
+def profile_serving(n_requests: int) -> None:
+    """Phase 13(b)'s prefix table, cut to ``n_requests``, as two cells."""
+    from .data.scenarios import make_scenario
+    from .figures import bench_serving as bs
+    from .serving.engine import DelayedHitPrefixCache
+
+    w = make_scenario("flash_crowd", seed=0, n_requests=n_requests,
+                      n_keys=200_000)
+    reqs = [(float(t), f"p{k}", int(n))
+            for t, k, n in zip(w.times, w.keys, w.n_tokens)]
+    for policy in ("stoch_vacdh", "lru"):
+        def run(policy=policy):
+            eng = bs._make_engine(w, hedging=True, hier=False, policy=policy,
+                                  max_objects=1 << 18)
+            for q in reqs:
+                eng.serve(*q)
+            c = eng.cache.counters
+            return {"requests": len(reqs), "syncs": c["syncs"],
+                    "admissions": c["admits"]}
+        profile_cell(f"serving_{policy}", run, DelayedHitPrefixCache,
+                     ("flush", "ranks", "_victims"), nested=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=3000)
     ap.add_argument("--grid", action="store_true",
                     help="profile the 18-lane 2^20 grid instead of the "
                          "one-lane cells")
+    ap.add_argument("--serving", action="store_true",
+                    help="profile the serving engine's 2^18-object prefix "
+                         "table instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -160,7 +199,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    if args.grid:
+    if args.serving:
+        profile_serving(args.requests)
+    elif args.grid:
         profile_cell("grid", run_grid)
     else:
         profile_cell("fig2", run_fig2)

@@ -51,7 +51,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.figures.fig4_sensitivity, "
         "repro_torch.figures.fig5_real_traces, repro_torch.figures.run, "
         "repro_torch.figures.fig6_hierarchy, repro_torch.core.hierarchy, "
-        "repro_torch.core.refsim, repro_torch.core.state\n"
+        "repro_torch.core.refsim, repro_torch.core.state, "
+        "repro_torch.core.percentile, repro_torch.data.scenarios, "
+        "repro_torch.serving.faults, repro_torch.serving.engine, "
+        "repro_torch.figures.bench_serving\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -75,6 +78,14 @@ def test_sources_import_no_jax_and_no_repro(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                 f"{path} imports {n}"
+
+
+def test_source_rule_covers_the_serving_slice():
+    paths = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for mod in ("core/percentile.py", "data/scenarios.py",
+                "serving/faults.py", "serving/engine.py",
+                "figures/bench_serving.py"):
+        assert f"src/repro_torch/{mod}" in paths
 
 
 def _cpu_trace():
@@ -113,6 +124,16 @@ def test_entry_points_raise_without_a_card():
         simulate_hier_chunked(hier, 2, 1.0, 1.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep_hier_grid(hier, 2, 1.0, 1.0, ["lru", "stoch_vacdh"])
+    from repro_torch.figures import bench_serving
+    from repro_torch.serving.engine import DelayedHitPrefixCache, ServeEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(capacity=1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DelayedHitPrefixCache(1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_serving.run(smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_serving.main(["--smoke"])
 
 
 def test_figure_drivers_raise_without_a_card():
@@ -127,7 +148,8 @@ def test_figure_drivers_raise_without_a_card():
                lambda: fig4_sensitivity.run(n_requests=10),
                lambda: fig4_sensitivity.run_compare(n_requests=10),
                lambda: fig5_real_traces.run(n_requests=10),
-               lambda: run.main(["--only", "fig3"])):
+               lambda: run.main(["--only", "fig3"]),
+               lambda: run.main(["--only", "serving", "--smoke"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
 
@@ -154,6 +176,16 @@ def test_explicit_cpu_runs():
     assert int(r.n_misses) == 2 and float(r.total_latency) == 1.0
     with pytest.raises(ValueError, match="unknown policy"):
         simulate(_cpu_trace(), 1.0, "nope", device="cpu")
+    from repro_torch.serving.engine import LatencyModel, ServeEngine
+    eng = ServeEngine(capacity=1.0, policy="stoch_vacdh", device="cpu",
+                      latency=LatencyModel(base_s=1.0, per_token_s=0.0,
+                                           stochastic=False),
+                      state_size_fn=lambda n: 1.0, hedging=False)
+    assert eng.cache.dev.type == "cpu" and eng.cache.mode == "ref"
+    assert eng.cache.mirror_f.device.type == "cpu"
+    assert [eng.serve(t, "p", 8) for t in (0.0, 0.5, 2.0)] == [
+        ("miss", 1.0), ("delayed", 0.5), ("hit", 0.0)]
+    assert eng.cache.counters["admits"] == eng.cache.counters["syncs"] == 1
 
 
 def test_score_mode_resolution():

@@ -127,12 +127,28 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    card), kernels against plain versions in every (outcome, latency)
    pair and counter, with req/s, syncs per request and the mirror's
    bytes.  A kernel run must launch ``ranking_victim_order`` at least
-   once an eq.-16 admission and the lane scatter at least once a rank.
+   once an eq.-16 admission and the lane scatter at least once a rank;
+14. the sweep fabric: (a) ``bench_sweep``'s 24-lane scaling grid
+   (stoch_vacdh, 8 omegas x 3 capacities, 100 objects, eq. 16 through
+   ``ranking_victim_order``) at ``FABRIC_REQUESTS`` = 5,000 requests, (b)
+   the same grid with lru and vacdh lanes beside stoch_vacdh (72 lanes)
+   at ``FABRIC_MULTI_REQUESTS`` = 2,500 (cut: at 5,000 phase 14 took
+   97 s on an H100 80GB HBM3 at 700 W, over its 90 s), (c) fig6's
+   hash route at S = 4 with its 4 hop laws at ``FABRIC_HIER_REQUESTS`` =
+   2,000 requests: each in process and through ``mesh=make_data_mesh(1)``
+   (one worker process on the card), every field bit for bit, the
+   worker's launches counted, with both lane-requests/s and the worker's
+   start-up seconds; (d) ``devices=2`` must raise on a one-card machine.
+
+The kernel timings of phases 1, 4 and 6 come from
+``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
+``repro_torch.figures.run``); their checks are here.
 
 Each main-path run starts from zeroed launch counts, prints its
 lane-scatter launches per request, and must launch every kernel it
 reaches (the LM runs: exactly once a layer per prompt or per
-decoded token); a run through the plain versions must launch none.
+decoded token; a fabric run's worker, counted in the worker); a run
+through the plain versions must launch none.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 before it come the ``kernels`` JSON line and the card's name and power
@@ -152,9 +168,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
 GRID_REQUESTS = 5_000         # phase 9b's replay, cut for the host-bound rate
@@ -170,22 +183,11 @@ def log(*a):
 
 
 def time_ms(fn, reps: int = 100) -> float:
-    """Median device time of one ``fn()`` call over ``reps`` calls, from
-    CUDA events around each call.  The calls are queued behind a sleep
-    kernel, so the host's launch cost does not show in the device time."""
-    import torch
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(200_000_000)
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in ev)
+    """Median device time of one ``fn()`` call over ``reps`` calls
+    (``repro_torch.figures.bench_kernels.time_ms``: CUDA events, the calls
+    queued behind a sleep kernel)."""
+    from repro_torch.figures import bench_kernels
+    return bench_kernels.time_ms(fn, reps)
 
 
 def bitwise_equal(a, b) -> bool:
@@ -198,25 +200,11 @@ def bitwise_equal(a, b) -> bool:
 
 
 def ranking_inputs(n: int, density, seed: int):
-    """Eq.-16 inputs on the card; an eighth of the elements repeat other
-    elements' inputs exactly, so scores tie across tiles."""
-    import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g,
-                                                   device="cuda")
-    lam, z, resid, sizes = u(1e-3, 50.0), u(1e-3, 2.0), u(1e-3, 10.0), \
-        u(1.0, 100.0)
-    dst = torch.randperm(n, generator=g, device="cuda")[:n // 8]
-    src = torch.randperm(n, generator=g, device="cuda")[:n // 8]
-    for x in (lam, z, resid, sizes):
-        x[dst] = x[src]
-    if density == "sparse":          # 2 cached per 1024-tile (< TOP)
-        cached = torch.zeros(n, dtype=torch.bool, device="cuda")
-        cached[3::1024] = True
-        cached[700::1024] = True
-    else:
-        cached = torch.rand(n, generator=g, device="cuda") < density
-    return lam, z, resid, sizes, cached
+    """Eq.-16 inputs on the card (``bench_kernels.ranking_inputs``); an
+    eighth of the elements repeat other elements' inputs exactly, so
+    scores tie across tiles."""
+    from repro_torch.figures import bench_kernels
+    return bench_kernels.ranking_inputs(n, density, seed)
 
 
 RANK_NS = (1, 100, 1025, N_DEPLOY, 1_000_003)   # fig2's table is N = 100
@@ -359,14 +347,11 @@ def check_lane_batch(err: dict) -> int:
 def phase_kernels() -> dict:
     """Every simulator kernel against its plain version; timings at the
     main path's shapes."""
-    import numpy as np
     import torch
+    from repro_torch.figures import bench_kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.lane_scatter import (lane_scatter_add,
-                                                  lane_scatter_batch,
                                                   lane_scatter_set)
-    from repro_torch.kernels.ranking_score import (ranking_scores,
-                                                   ranking_victim_order)
     err = {"ranking_victim_order": 0.0, "ranking_scores": 0.0,
            "lane_scatter": 0.0}
     cases = check_ranking(err)
@@ -421,86 +406,31 @@ def phase_kernels() -> dict:
         f"rows; masked or not; set, add or both; elements written twice "
         f"or not), one launch a block")
 
-    # --- timings at the main path's shapes --------------------------------
-    n = N_DEPLOY
-    t = {}
-    for n_r in (100, N_DEPLOY):
-        args = ranking_inputs(n_r, 0.5, seed=1234)
-        bound = max(n_r * (4 * 4 + 1 + 4) / HBM_BYTES_PER_S,
-                    n_r * 16 / F32_FLOPS) * 1e3
-        t[("ranking_victim_order", n_r)] = (
-            time_ms(lambda: ranking_victim_order(*args, omega=1.0, top=TOP)),
-            time_ms(lambda: ref.ranking_victim_order_ref(*args, 1.0, TOP)),
-            bound + (TOP * 8) / HBM_BYTES_PER_S * 1e3, None)
-        t[("ranking_scores", n_r)] = (
-            time_ms(lambda: ranking_scores(*args, omega=1.0)),
-            time_ms(lambda: ref.ranking_scores_ref(*args, 1.0)),
-            bound + 8 / HBM_BYTES_PER_S * 1e3, None)
-    # the serve's write: 12 f32 fields x 2 lanes and 2 flags x 2 lanes, as
-    # one batch (over fig2's 100 objects and over 2^20), as two single
-    # launches and as index_put_ (over 2^20)
-    rng = np.random.default_rng(7)
+    # --- timings at the main path's shapes (bench_kernels) -----------------
+    dev = torch.device("cuda")
+    rows = bench_kernels.time_ranking(dev) + \
+        bench_kernels.time_lane_scatter(dev)
+    for r in rows:
+        log(f"phase 1: {r['name']} at {r['shape']}: {r['us']:.2f} us/launch,"
+            f" plain {r['plain_us']:.2f} us, bound {r['bound_us']:.4f} us"
+            + ("" if r["library_us"] is None else
+               f", library {r['library_us']:.2f} us ({r['library']})"))
+        if "singles_us" in r:
+            log(f"phase 1: lane_scatter at {r['shape']}: two single "
+                f"launches {r['singles_us']:.2f} us; in the 32 KB parameter "
+                f"block {r['param32k_us']:.2f} us; one batch call "
+                f"{r['host_call_us']:.2f} us on the host clock (packing + "
+                f"launch, 1000 calls)")
+    return {r["name"]: kernel_entry(r, err[r["name"]]) for r in rows
+            if r["n"] == N_DEPLOY}
 
-    def serve_write(n_w):
-        vals = torch.zeros((24, n_w), dtype=torch.float32, device="cuda")
-        flags = torch.zeros((4, n_w), dtype=torch.bool, device="cuda")
-        return [(vals, rng.integers(0, n_w, 24), rng.random(24, np.float32),
-                 None, False),
-                (flags, rng.integers(0, n_w, 4), rng.random(4) < 0.5, None,
-                 False)]
 
-    # bytes: each row's index and value read, its element written
-    write_bound = (24 * (4 + 4 + 4) + 4 * (4 + 4 + 1)) / HBM_BYTES_PER_S * 1e3
-    fig2_write = serve_write(100)
-    t[("lane_scatter", 100)] = (
-        time_ms(lambda: lane_scatter_batch(fig2_write)),
-        time_ms(lambda: ref.lane_scatter_batch_ref(fig2_write)),
-        write_bound, None)
-    serve = serve_write(n)
-    dev_ops = [(x, torch.as_tensor(i, dtype=torch.int32, device="cuda"),
-                torch.as_tensor(v, device="cuda"),
-                torch.arange(x.shape[0], device="cuda"))
-               for x, i, v, _, _ in serve]
-
-    def singles():
-        for x, i, v, _ in dev_ops:
-            lane_scatter_set(x, i, v)
-
-    def library():
-        for x, i, v, rows in dev_ops:
-            x.index_put_((rows, i.long()), v)
-
-    t[("lane_scatter", n)] = (
-        time_ms(lambda: lane_scatter_batch(serve)),
-        time_ms(lambda: ref.lane_scatter_batch_ref(serve)), write_bound,
-        time_ms(library))
-    single_ms = time_ms(singles)
-    # the same write in the 32 KB parameter variant: 130 skipped rows of
-    # padding make the block too large for the 512 B one
-    pad = torch.zeros((130, 1), device="cuda")
-    padded = serve + [(pad, np.full(130, -1), np.zeros(130, np.float32),
-                       None, False)]
-    padded_ms = time_ms(lambda: lane_scatter_batch(padded))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(1000):
-        lane_scatter_batch(serve)
-    torch.cuda.synchronize()
-    host_us = (time.perf_counter() - t0) * 1e3
-    for (k, n_k), (ms, plain, bound, lib) in t.items():
-        at = ("the serve's write, " if k == "lane_scatter" else "") + \
-            f"N={n_k}"
-        log(f"phase 1: {k} at {at}: {ms * 1e3:.2f} us/launch, plain "
-            f"{plain * 1e3:.2f} us, bound {bound * 1e3:.4f} us"
-            + ("" if lib is None else
-               f", library {lib * 1e3:.2f} us (2 x index_put_)"))
-    log(f"phase 1: lane_scatter at the serve's write, N={n}: two single "
-        f"launches {single_ms * 1e3:.2f} us; in the 32 KB parameter block "
-        f"{padded_ms * 1e3:.2f} us; one batch call {host_us:.2f} us on the "
-        f"host clock (packing + launch, 1000 calls)")
-    return {k: dict(ms=v[0], plain_ms=v[1], bound_ms=v[2], library_ms=v[3],
-                    max_abs_err=err[k])
-            for (k, n_k), v in t.items() if n_k == N_DEPLOY}
+def kernel_entry(row: dict, max_abs_err: float) -> dict:
+    """A bench_kernels row as the ``kernels`` line's timing fields (ms)."""
+    ms = lambda us: None if us is None else us / 1e3
+    return dict(ms=ms(row["us"]), plain_ms=ms(row["plain_us"]),
+                bound_ms=ms(row["bound_us"]), bound_by=row["bound_by"],
+                library_ms=ms(row["library_us"]), max_abs_err=max_abs_err)
 
 
 def same_result(a, b) -> bool:
@@ -668,7 +598,7 @@ def phase_attention() -> dict:
     """Both attention kernels against their plain versions over the sweep;
     timings at StableLM-2-1.6B's and Hymba-1.5B's shapes."""
     import torch
-    import torch.nn.functional as F
+    from repro_torch.figures import bench_kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_splits, q_tile)
@@ -807,11 +737,8 @@ def phase_attention() -> dict:
               ref.decode_attention_ref(qd, kc, vc, qpd, kp, **kw),
               f"Hymba decode ring {ring} H={h} KV={kv} {kw}")
         cases += 2
-    # timed below: the bf16 tensors, 40 rings (59 MB, out of L2 in turn)
-    hy_pre = (q, k, v, pos, pos, kw)
-    hy_rings = [(kc, vc)] + [(rnd((1, ring, kv, dh), tdt),
-                              rnd((1, ring, kv, dh), tdt)) for _ in range(39)]
-    hy_dec = (qd, qpd, kp, kw)
+    # the bf16 decode shapes, for the split log below
+    hy_dec = (qd, kc)
     # StableLM-2-1.6B's shapes on the main path (bf16, B=1, 32 MHA heads of
     # 64): causal prefill at S=2048, and decode over a full cache of 2048
     # (4 caches, 67 MB, taken in turn when timed below, so each call finds
@@ -844,107 +771,25 @@ def phase_attention() -> dict:
     log(f"phase 4: attention kernels == plain within tolerance over "
         f"{cases} cases (f32 <= 1e-5; bf16 <= 1 ulp + 1e-5)")
 
-    # --- timings at StableLM-2-1.6B's and Hymba-1.5B's shapes (bf16) -------
-    def bound(q, k, q_pos, k_pos, kw):
-        """The least time of one call, the larger of its operations (q.k
-        and p.v over the visible pairs) at the bf16 tensor rate and its
-        bytes (q, k, v, out and the positions, each once) at 3.35 TB/s;
-        also the operations of the tensor-core kernel's split-P work (p.v
-        twice: p as bf16 hi + lo)."""
-        b, sq, h, dh = q.shape
-        sk, kv = k.shape[1], k.shape[2]
-        pairs = int(ref.attention_keep(q_pos, k_pos, kw["window"],
-                                       kw["sink"]).sum()) * b * h
-        flops = 2 * 2 * pairs * dh
-        nbytes = (2 * b * sq * h + 2 * b * sk * kv) * dh * q.element_size() \
-            + (sq + sk) * 4
-        ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S \
-            * 1e3
-        return (max(ops_ms, bytes_ms),
-                "operations" if ops_ms > bytes_ms else "bytes",
-                1.5 * flops / BF16_FLOPS * 1e3)
-
-    def heads_first(*xs):
-        return [x.transpose(1, 2).contiguous() for x in xs]
-
-    def rot(fn, n):
-        turn = [0]
-
-        def call():
-            turn[0] = (turn[0] + 1) % n
-            return fn(turn[0])
-        return call
-
-    kw0 = dict(window=0, sink=0)
-    qt, kt, vt = heads_first(q, k, v)
-    hq, hk, hv, hpos, _, hkw = hy_pre
-    hmask = ref.attention_keep(hpos, hpos, hkw["window"], hkw["sink"])
-    hqt, hkt, hvt = heads_first(hq, hk, hv)
-    hqd, hqpd, hkp, _ = hy_dec
-    hdmask = ref.attention_keep(hqpd, hkp, hkw["window"], hkw["sink"])
-    hqdt = heads_first(hqd)[0]
-    hrings_t = [heads_first(kc, vc) for kc, vc in hy_rings]
-    caches_t = [heads_first(kc, vc) for kc, vc in caches]
-    qdt = heads_first(qd)[0]
-    nr = len(hy_rings)
-    t = {
-        ("flash_attention", "StableLM"): (
-            time_ms(lambda: flash_attention(q, k, v, pos, pos), 20),
-            time_ms(lambda: ref.flash_attention_ref(q, k, v, pos, pos), 5),
-            bound(q, k, pos, pos, kw0),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 20),
-            "B=1, S=2048, 32 heads of 64, causal"),
-        ("flash_attention", "Hymba"): (
-            time_ms(lambda: flash_attention(hq, hk, hv, hpos, hpos, **hkw),
-                    20),
-            time_ms(lambda: ref.flash_attention_ref(hq, hk, hv, hpos, hpos,
-                                                    **hkw), 5),
-            bound(hq, hk, hpos, hpos, hkw),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                hqt, hkt, hvt, attn_mask=hmask, enable_gqa=True), 20),
-            "B=1, S=2176, 25 q / 5 KV heads of 64, window 1024, sink 128"),
-        ("decode_attention", "StableLM"): (
-            time_ms(rot(lambda i: decode_attention(qd, *caches[i], qpd, pos),
-                        4)),
-            time_ms(rot(lambda i: ref.decode_attention_ref(
-                qd, *caches[i], qpd, pos), 4), 20),
-            bound(qd, caches[0][0], qpd, pos, kw0),
-            time_ms(rot(lambda i: F.scaled_dot_product_attention(
-                qdt, *caches_t[i]), 4)),
-            "B=1, Sc=2048, 32 heads of 64"),
-        ("decode_attention", "Hymba"): (
-            time_ms(rot(lambda i: decode_attention(
-                hqd, *hy_rings[i], hqpd, hkp, **hkw), nr)),
-            time_ms(rot(lambda i: ref.decode_attention_ref(
-                hqd, *hy_rings[i], hqpd, hkp, **hkw), nr), 20),
-            bound(hqd, hy_rings[0][0], hqpd, hkp, hkw),
-            time_ms(rot(lambda i: F.scaled_dot_product_attention(
-                hqdt, *hrings_t[i], attn_mask=hdmask, enable_gqa=True), nr)),
-            "B=1, wrapped ring of 1152, 25 q / 5 KV heads of 64"),
-    }
+    # --- timings at StableLM-2-1.6B's and Hymba-1.5B's shapes (bench_kernels)
+    rows = bench_kernels.time_attention(torch.device("cuda"))
+    for r in rows:
+        log(f"phase 4: {r['name']} at {r['shape']} (bf16): {r['us']:.2f} "
+            f"us, plain {r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us "
+            f"({r['bound_by']}: {r['bound_how']}), "
+            f"scaled_dot_product_attention {r['library_us']:.2f} us")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (name, cell), (ms, plain, (bnd, by, split_p), lib, shape) in \
-            t.items():
-        extra = (f", split-P work bound {split_p * 1e3:.2f} us"
-                 if name == "flash_attention" else "")
-        log(f"phase 4: {name} at {cell}'s shape ({shape}, bf16): "
-            f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, bound "
-            f"{bnd * 1e3:.2f} us ({by}){extra}, "
-            f"scaled_dot_product_attention {lib * 1e3:.2f} us")
     for cell, (qq, kk) in (("StableLM", (qd, caches[0][0])),
-                           ("Hymba", (hqd, hy_rings[0][0]))):
+                           ("Hymba", hy_dec)):
         group = qq.shape[2] // kk.shape[2]
         tiles = kk.shape[2] * -(-group // q_tile(group))
         n_split, split_len = decode_splits(kk.shape[1], tiles, sms)
         log(f"phase 4: decode_attention at {cell}'s shape: {n_split} "
             f"splits of {split_len} slots, {tiles * n_split} blocks on "
             f"{sms} SMs")
-    return {name: dict(ms=ms, plain_ms=plain, bound_ms=bnd, library_ms=lib,
-                       bound_by=by,
-                       max_abs_err=max(worst[(name, d)][0] for d in dts))
-            for (name, cell), (ms, plain, (bnd, by, _), lib, _) in t.items()
-            if cell == "StableLM"}
+    return {r["name"]: kernel_entry(r, max(worst[(r["name"], d)][0]
+                                           for d in dts))
+            for r in rows if r["shape"].startswith("StableLM")}
 
 
 def to_f32(t):
@@ -1092,61 +937,6 @@ def phase_serve(phase: int, arch: str, launches: dict,
 
 
 # --- phase 6: the gla_chunk kernel ---------------------------------------------
-def gla_inputs(g, b, s, h, dk, dv, dt, init: bool, strided: bool = False):
-    """GLA inputs on the card: q, k, v in ``dt``, log-sigmoid gates in f32,
-    and an initial (S0, n0) or None.  ``strided``: q and k are the two
-    halves of one (B,S,H,2dk) tensor, as Mamba's C and B are."""
-    import torch
-    import torch.nn.functional as F
-    rn = lambda *sh: torch.randn(sh, generator=g, device="cuda")
-    if strided:
-        qk = rn(b, s, h, 2 * dk)
-        qk[..., dk:] *= 0.3
-        q, k = torch.chunk(qk.to(dt), 2, dim=-1)
-    else:
-        q, k = rn(b, s, h, dk).to(dt), (rn(b, s, h, dk) * 0.3).to(dt)
-    v = rn(b, s, h, dv).to(dt)
-    log_f, log_i = F.logsigmoid(rn(b, s, h) - 1.0), F.logsigmoid(rn(b, s, h))
-    st = (rn(b, h, dk, dv) * 0.1, rn(b, h, dk).abs()) if init else None
-    return (q, k, v, log_f, log_i), st
-
-
-def gla_bound_ms(b, s, h, dk, dv, chunk, elt):
-    """The least time for one gla_chunk call: the larger of its bytes (q,
-    k, v in, y out in the model dtype; f32 gates in, f32 state and
-    normaliser out) at 3.35 TB/s and its operations on and below each
-    chunk's diagonal (scores, A.v, the decayed state read, the state carry
-    and the normaliser's two dot products) at the bf16 tensor rate, as
-    row 4 of the kernel table counts attention.  Beside it, the bf16
-    route's own floors: its split work (q k^T once; A v, q S_in and
-    (k w)^T v twice, as bf16 hi + lo terms) at the bf16 rate, and its
-    bytes with the scratch round trips (the chunks' own f32 states, their
-    bf16 hi + lo entering states from chunk 1 on, and the f32 scores of the
-    64 x 64 tiles on and below the diagonal, each written once and read
-    once) at 3.35 TB/s."""
-    nc = s // chunk
-    tri = chunk * (chunk + 1) // 2
-    flops = b * h * nc * (2 * tri * dk + 2 * tri * dv
-                          + 2 * 2 * chunk * dk * dv + 2 * 2 * chunk * dk)
-    nbytes = (b * s * h * (2 * dk + 2 * dv) * elt + b * s * h * 2 * 4
-              + b * h * (dk * dv + dk) * 4)
-    by_ops = flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S
-    split = b * h * nc * (2 * tri * dk + 2 * 2 * tri * dv
-                          + 2 * 2 * 2 * chunk * dk * dv
-                          + 2 * 2 * chunk * dk)
-    rt = -(-chunk // 64)
-    scratch = b * h * (nc * dk * dv * 4 + (nc - 1) * dk * dv * 4
-                       + nc * rt * (rt + 1) // 2 * 64 * 64 * 4)
-    design = nbytes + 2 * scratch
-    return dict(bound_ms=max(flops / BF16_FLOPS,
-                             nbytes / HBM_BYTES_PER_S) * 1e3,
-                bound_by="operations" if by_ops else "bytes", flops=flops,
-                bytes=nbytes, split_flops=split,
-                split_ms=split / BF16_FLOPS * 1e3, design_bytes=design,
-                design_ms=max(split / BF16_FLOPS,
-                              design / HBM_BYTES_PER_S) * 1e3)
-
-
 def within(got, want, bf16: bool) -> float:
     """Largest ``|got - want| / (atol + rtol |want| [+ 1 bf16 ulp])`` with
     JAX's kernel-vs-chunkwise bound ``atol 1e-4, rtol 1e-3``
@@ -1167,6 +957,7 @@ def phase_gla() -> dict:
     its rounding); timings at xLSTM-350M's and Hymba-1.5B's prefill
     shapes."""
     import torch
+    from repro_torch.figures import bench_kernels
     from repro_torch.kernels import gla_chunk as gla_mod
     from repro_torch.kernels import ref
     gla_chunk = gla_mod.gla_chunk
@@ -1207,23 +998,20 @@ def phase_gla() -> dict:
                     for normalize in (True, False):
                         for init in (False, True):
                             s = chunk * n_chunks
-                            args, st = gla_inputs(g, b, s, h, dk, dv, tdt,
-                                                  init, strided=cases % 2)
+                            args, st = bench_kernels.gla_inputs(
+                                g, b, s, h, dk, dv, tdt, init,
+                                strided=cases % 2)
                             check(args, st, chunk, normalize, dt,
                                   f"{dt} dk={dk} dv={dv} B={b} H={h} S={s} "
                                   f"chunk={chunk} normalize={normalize} "
                                   f"init={init}")
                             cases += 1
-    # the main path's shapes: an xLSTM layer's 2048-token prompt (4 heads,
-    # dk = dv = 512, normalised) and a Hymba layer's 128 + 2048 tokens
-    # padded to 2304 (25 heads, dk 16, dv 128, not normalised), bf16
-    shapes = {"xlstm-350m": (1, 2048, 4, 512, 512, True),
-              "hymba-1.5b": (1, 2304, 25, 16, 128, False)}
-    main_args = {}
-    for name, (b, s, h, dk, dv, normalize) in shapes.items():
-        args, _ = gla_inputs(g, b, s, h, dk, dv, torch.bfloat16, False)
+    # the main path's shapes (xLSTM-350M's and Hymba-1.5B's prefill), bf16
+    for name, (b, s, h, dk, dv, normalize) in \
+            bench_kernels.GLA_SHAPES.items():
+        args, _ = bench_kernels.gla_inputs(g, b, s, h, dk, dv,
+                                             torch.bfloat16, False)
         check(args, None, 256, normalize, "bf16", f"{name} prefill shape")
-        main_args[name] = (args, normalize)
         cases += 1
     torch.cuda.synchronize()
     log(f"phase 6: gla_chunk == plain within tolerance over {cases} cases "
@@ -1233,26 +1021,12 @@ def phase_gla() -> dict:
         f"(its rounding), worst {worst['split']:.3f} of the same bound")
 
     out = {}
-    for name, (b, s, h, dk, dv, _) in shapes.items():
-        args, normalize = main_args[name]
-        bd = gla_bound_ms(b, s, h, dk, dv, 256, 2)
-        ms = time_ms(lambda: gla_chunk(*args, normalize=normalize), 20)
-        plain = time_ms(lambda: ref.gla_chunk_plain(*args,
-                                                    normalize=normalize), 10)
-        log(f"phase 6: gla_chunk at {name}'s prefill shape (B={b}, S={s}, "
-            f"H={h}, dk={dk}, dv={dv}, chunk 256, bf16): {ms * 1e3:.2f} us, "
-            f"plain {plain * 1e3:.2f} us, bound {bd['bound_ms'] * 1e3:.2f} "
-            f"us ({bd['bound_by']}: {bd['flops'] / 1e9:.3f} GFLOP, "
-            f"{bd['bytes'] / 1e6:.2f} MB); split work "
-            f"{bd['split_flops'] / 1e9:.3f} GFLOP, {bd['split_ms'] * 1e3:.2f}"
-            f" us; with the scratch {bd['design_bytes'] / 1e6:.2f} MB, "
-            f"{bd['design_ms'] * 1e3:.2f} us; blocks "
-            f"{gla_mod.tc_blocks(b, s, h, dk, dv, 256)} on "
-            f"{torch.cuda.get_device_properties(0).multi_processor_count} "
-            f"SMs")
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bd["bound_ms"],
-                         bound_by=bd["bound_by"], library_ms=None,
-                         max_abs_err=worst["err"])
+    for r, name in zip(bench_kernels.time_gla(torch.device("cuda")),
+                       bench_kernels.GLA_SHAPES):
+        log(f"phase 6: gla_chunk at {r['shape']} (bf16): {r['us']:.2f} us, "
+            f"plain {r['plain_us']:.2f} us, bound {r['bound_us']:.2f} us "
+            f"({r['bound_by']}: {r['bound_how']})")
+        out[name] = kernel_entry(r, worst["err"])
     return out
 
 
@@ -1924,6 +1698,108 @@ def phase_serving(launches: dict) -> None:
             f"{st['mean_latency']}")
 
 
+# --- phase 14: the sweep fabric on the card ----------------------------------
+FABRIC_REQUESTS = 5_000       # phase 14(a)'s grid
+FABRIC_MULTI_REQUESTS = 2_500  # 14(b)'s, cut for phase 14's 90 s
+FABRIC_HIER_REQUESTS = 2_000  # phase 14(c)'s fig6 route
+
+
+def fabric_pair(label: str, fn, needs, launches: dict, arrays):
+    """One grid in process and through a one-card mesh (one worker), each
+    from zeroed launch counts: the grids must be equal bit for bit, the
+    in-process run must launch ``needs`` and the worker must launch them
+    too (the caller launches nothing in the fabric run).  ``arrays`` maps
+    a grid to its fields as host arrays.  Adds both runs' launches to
+    ``launches``."""
+    import torch
+    from repro_torch.launch.mesh import make_data_mesh
+    t0 = time.perf_counter()
+    inproc, ic, lc = drive(f"phase {label}: in process",
+                           lambda c: fn(c, {}), needs)
+    in_s = time.perf_counter() - t0
+    add_launches(launches, lc)
+    mesh = make_data_mesh(1)
+    t0 = time.perf_counter()
+    fab, fc, _ = drive(f"phase {label}: mesh=make_data_mesh(1)",
+                       lambda c: fn(c, {"mesh": mesh}))
+    fab_s = time.perf_counter() - t0
+    wl = fc["launches"]
+    for k in needs:
+        if wl.get(k, 0) <= 0:
+            raise AssertionError(f"phase {label}: the worker did not launch "
+                                 f"{k}: {wl}")
+    add_launches(launches, wl)
+    fa, fb = arrays(inproc), arrays(fab)
+    if fa.keys() != fb.keys() or not all(
+            bitwise_equal(torch.from_numpy(fa[k]), torch.from_numpy(fb[k]))
+            for k in fa):
+        raise AssertionError(f"phase {label}: the fabric grid differs from "
+                             f"the in-process grid")
+    for k in ("lane_requests", "requests"):
+        if fc[k] != ic[k]:
+            raise AssertionError(f"phase {label}: {k} {fc[k]} != {ic[k]}")
+    start = fc["worker_start_s"] / fc["workers"]
+    rate_in, rate_fab = ic["lane_requests"] / in_s, fc["lane_requests"] / fab_s
+    log(f"phase {label}: fabric == in process bitwise in every field; "
+        f"{ic['lane_requests']} lane-requests: in process {in_s:.2f} s "
+        f"({rate_in:.1f} lane-requests/s), through a one-card mesh "
+        f"{fab_s:.2f} s ({rate_fab:.1f} lane-requests/s, "
+        f"{rate_fab / rate_in:.3f} of in process; "
+        f"{fc['lane_requests'] / (fab_s - start):.1f} lane-requests/s "
+        f"without the worker's start-up of {start:.2f} s); the worker's "
+        f"launches {wl}")
+
+
+def phase_fabric(launches: dict) -> None:
+    """14: the sweep fabric on the card: (a) bench_sweep's 24-lane scaling
+    grid (stoch_vacdh, 8 omegas x 3 capacities, 100 objects, eq. 16
+    through ``ranking_victim_order``) at ``FABRIC_REQUESTS``, (b) the same
+    grid with lru and vacdh beside stoch_vacdh at
+    ``FABRIC_MULTI_REQUESTS``, (c) fig6's hash route at
+    S = 4 with its 4 hop laws at ``FABRIC_HIER_REQUESTS``: each through a
+    one-card mesh (one worker process) against the in-process grid bit
+    for bit; (d) ``devices=2`` refused on a one-card machine."""
+    import torch
+    from repro_torch.core import (PolicyParams, make_hier_trace, sweep_grid,
+                                  sweep_hier_grid)
+    from repro_torch.data.traces import synthetic_trace
+    from repro_torch.figures import bench_sweep, fig6_hierarchy
+
+    trace, caps, plist, _ = bench_sweep.scaling_workload(
+        n_requests=FABRIC_REQUESTS)
+    for label, pols, n in (
+            ("14a", "stoch_vacdh", FABRIC_REQUESTS),
+            ("14b", ["lru", "vacdh", "stoch_vacdh"], FABRIC_MULTI_REQUESTS)):
+        tr = trace if n == FABRIC_REQUESTS else \
+            bench_sweep.scaling_workload(n_requests=n)[0]
+        fabric_pair(label, lambda c, kw, pols=pols, tr=tr: sweep_grid(
+            tr, caps, pols, plist, counters=c, **kw),
+            ("ranking_victim_order", "lane_scatter"), launches, grid_arrays)
+
+    base = synthetic_trace(torch.Generator().manual_seed(0),
+                           fig6_hierarchy._spec(False, FABRIC_HIER_REQUESTS))
+    hops = [make_hier_trace(base, 4, generator=torch.Generator()
+                            .manual_seed(7), hop_mean=0.01, hop_dist=d,
+                            route="hash")
+            for _, d in fig6_hierarchy.HOP_DISTS]
+    fabric_pair("14c", lambda c, kw: sweep_hier_grid(
+        hops, 4, 400.0, (0.0, 2000.0), list(fig6_hierarchy.POLICIES),
+        PolicyParams(omega=1.0), estimate_z=True, counters=c, **kw),
+        ("lane_scatter",), launches, hier_grid_arrays)
+
+    n = torch.cuda.device_count()
+    if n == 1:
+        try:
+            sweep_grid(trace, caps, "stoch_vacdh", plist, devices=2)
+        except ValueError as e:
+            log(f"phase 14d: devices=2 on one card raises: {e}")
+        else:
+            raise AssertionError("devices=2 ran on a one-card machine")
+    else:
+        log(f"phase 14d: {n} cards visible; the one-card refusal is not "
+            f"checked")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=20_000,
@@ -1968,8 +1844,9 @@ def main() -> int:
     timed("11", phase_slots, launches)
     timed("12", phase_hier, launches)
     timed("13", phase_serving, launches)
+    timed("14", phase_fabric, launches)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3 and 5-13: "
+    log(f"launches over the main-path runs of phases 2-3 and 5-14: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

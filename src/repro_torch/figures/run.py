@@ -1,25 +1,46 @@
-"""Figure driver: one job per paper figure, and the serving benchmark,
-run on the card unless ``--device cpu``.
+"""Figure runner: one job per paper figure, and the benchmarks, run on
+the card unless ``--device cpu``.
 
     python3 -m repro_torch.figures.run
-        [--only fig2,fig3,fig4,fig5,fig6,serving] [--full] [--smoke]
-        [--compare] [--device cpu]
+        [--only fig2,fig3,fig4,fig5,fig6,kernels,sweep,serving,memory]
+        [--full] [--smoke] [--compare] [--device cpu]
 
 Prints each job's rows as CSV lines and writes them to
 ``repro_torch/figures/results/<job>.csv``; ``--compare`` adds fig4's and
 fig6's per-point-loop vs grid timings (``fig4_sweep_speedup.csv``,
-``fig6_sweep_speedup.csv``).  ``serving`` also writes
-``results/bench_serving.json``; ``--smoke`` sizes it small.  Prints the
-card's name and power limit first when it runs on one.
+``fig6_sweep_speedup.csv``).  ``kernels`` times the six kernels
+(``bench_kernels``), ``sweep`` the grids against their loops and the
+fabric (``bench_sweep``), ``serving`` the SLO bench (``bench_serving``);
+each also writes ``results/<bench>.json``, and ``--smoke`` sizes
+``sweep`` and ``serving`` small.  ``memory`` (the dense-vs-slots probe,
+one child process a cell) runs only when named.  Prints the card's name
+and power limit first when it runs on one.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
 
-JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6", "serving")
+JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6", "kernels", "sweep",
+        "serving", "memory")
+
+
+def _memory(device) -> None:
+    """The dense-vs-slots probe as a process of its own, so that its
+    cells' ``ru_maxrss`` does not carry this process's peak."""
+    from .probe_memory import SRC
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    cmd = [sys.executable, "-m", "repro_torch.figures.probe_memory",
+           "--simstate"] + ([] if device is None else ["--device", device])
+    rc = subprocess.run(cmd, env=env).returncode
+    if rc != 0:
+        raise RuntimeError(f"probe_memory --simstate exited {rc}")
 
 
 def main(argv=None) -> int:
@@ -29,7 +50,7 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="paper-scale sizes (slower)")
     ap.add_argument("--smoke", action="store_true",
-                    help="serving: three scenarios at small sizes")
+                    help="sweep and serving at small sizes")
     ap.add_argument("--compare", action="store_true",
                     help="with fig4 and fig6: time the per-point loop vs "
                          "the grids")
@@ -37,14 +58,16 @@ def main(argv=None) -> int:
                     help="cpu to run the plain versions on the CPU "
                          "(default: the card)")
     args = ap.parse_args(argv)
-    want = set(args.only.split(",")) if args.only else set(JOBS)
+    want = (set(args.only.split(",")) if args.only
+            else set(JOBS) - {"memory"})
     unknown = want - set(JOBS)
     if unknown:
         ap.error(f"unknown jobs {sorted(unknown)}; known: {list(JOBS)}")
 
     from .._device import resolve_device
-    from . import (bench_serving, fig2_synthetic, fig3_trace_stats,
-                   fig4_sensitivity, fig5_real_traces, fig6_hierarchy)
+    from . import (bench_kernels, bench_serving, bench_sweep,
+                   fig2_synthetic, fig3_trace_stats, fig4_sensitivity,
+                   fig5_real_traces, fig6_hierarchy)
     from .common import emit
 
     dev = resolve_device(args.device)
@@ -67,8 +90,13 @@ def main(argv=None) -> int:
         "fig6": lambda: emit(fig6_hierarchy.run(
             full=full, compare=args.compare, device=d,
             timings=fig6_timings), "fig6_hierarchy"),
+        "kernels": lambda: emit(bench_kernels.run(device=d),
+                                "bench_kernels"),
+        "sweep": lambda: emit(bench_sweep.run(
+            full=full, smoke=args.smoke, device=d), "bench_sweep"),
         "serving": lambda: emit(bench_serving.run(
             full=full, smoke=args.smoke, device=d), "bench_serving"),
+        "memory": lambda: _memory(d),
     }
     for name in JOBS:
         if name not in want:

@@ -222,8 +222,11 @@ def test_bad_route_shards_and_policies_rejected():
     with pytest.raises(ValueError, match="unknown policies"):
         sweep_hier_grid(ht, 2, 10.0, 10.0, "lru", l2_policy="lur",
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweep_hier_grid(ht, 2, 10.0, 10.0, "lru", devices=2, device="cpu")
+    # devices= / mesh= route through the fabric, which takes one of them
+    from repro_torch.launch.mesh import make_data_mesh
+    with pytest.raises(ValueError, match="not both"):
+        sweep_hier_grid(ht, 2, 10.0, 10.0, "lru", devices=2,
+                        mesh=make_data_mesh(1, ["cpu"]), device="cpu")
     with pytest.raises(ValueError, match="chunk_size"):
         simulate_hier_chunked(ht, 2, 10.0, 10.0, chunk_size=0, device="cpu")
 

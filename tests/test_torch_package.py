@@ -54,7 +54,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.core.refsim, repro_torch.core.state, "
         "repro_torch.core.percentile, repro_torch.data.scenarios, "
         "repro_torch.serving.faults, repro_torch.serving.engine, "
-        "repro_torch.figures.bench_serving\n"
+        "repro_torch.figures.bench_serving, repro_torch.launch.mesh, "
+        "repro_torch.launch.fabric, repro_torch.figures.bench_kernels, "
+        "repro_torch.figures.bench_sweep, repro_torch.figures.probe_memory\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -85,6 +87,14 @@ def test_source_rule_covers_the_serving_slice():
     for mod in ("core/percentile.py", "data/scenarios.py",
                 "serving/faults.py", "serving/engine.py",
                 "figures/bench_serving.py"):
+        assert f"src/repro_torch/{mod}" in paths
+
+
+def test_source_rule_covers_the_fabric_slice():
+    paths = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for mod in ("launch/mesh.py", "launch/fabric.py",
+                "figures/bench_kernels.py", "figures/bench_sweep.py",
+                "figures/probe_memory.py"):
         assert f"src/repro_torch/{mod}" in paths
 
 
@@ -134,6 +144,21 @@ def test_entry_points_raise_without_a_card():
         bench_serving.run(smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_serving.main(["--smoke"])
+    from repro_torch.figures import bench_kernels, bench_sweep, probe_memory
+    from repro_torch.launch.mesh import make_data_mesh, make_local_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_grid(_cpu_trace(), 1.0, "lru", devices=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_hier_grid(hier, 2, 1.0, 1.0, "lru", devices=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_grid(_cpu_trace(), 1.0, "lru",
+                   mesh=make_data_mesh(devices=["cuda:0"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_local_mesh()
+    for fn in (bench_kernels.run, lambda: bench_sweep.run(smoke=True),
+               probe_memory.run_simstate_probe):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
 
 
 def test_figure_drivers_raise_without_a_card():
@@ -149,7 +174,8 @@ def test_figure_drivers_raise_without_a_card():
                lambda: fig4_sensitivity.run_compare(n_requests=10),
                lambda: fig5_real_traces.run(n_requests=10),
                lambda: run.main(["--only", "fig3"]),
-               lambda: run.main(["--only", "serving", "--smoke"])):
+               lambda: run.main(["--only", "serving", "--smoke"]),
+               lambda: run.main(["--only", "kernels,sweep,memory"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
 

@@ -194,8 +194,11 @@ def test_unported_options_raise():
     _, tr = _traces()
     with pytest.raises(ValueError, match="slots"):
         sweep_grid(tr, 100.0, "lru", state_mode="slots", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweep_grid(tr, 100.0, "lru", devices=2, device="cpu")
+    # devices= / mesh= route through the fabric, which replays whole
+    # traces: chunked grids refuse it before starting a worker
+    with pytest.raises(ValueError, match="chunk_size is not supported"):
+        sweep_grid(tr, 100.0, "lru", devices=2, chunk_size=64,
+                   device="cpu")
     with pytest.raises(ValueError, match="chunk_size"):
         sweep_grid(tr, 100.0, "lru", chunk_size=0, device="cpu")
 

@@ -19,11 +19,11 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    N = 100 and 2^20, the serve's write as one batch, as two single
    launches and as ``index_put_``);
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
-   the fig2 synthetic workload through the kernels, held bitwise against
+   the fig2 synthetic workload (``PAPER_REQUESTS``) through the kernels, held bitwise against
    the same run through the plain versions on the card, plus the card's
    run against the CPU run of a small trace;
-3. the state at deployment size: a dense table over 2^20 objects, with the
-   kernel path held against the plain path and the ``evict_top=0`` path;
+3. the state at deployment size: a dense table over 2^20 objects
+   (``DEPLOY_REQUESTS`` requests, or ``--requests``), with the kernel path held against the plain path and the ``evict_top=0`` path;
 4. the two attention kernels against their plain versions on the card over
    head widths 16/32/64/128 (bf16 takes the tensor-core prefill kernel,
    f32 the CUDA-core one), GQA groups 1/4/12/24, ragged Sq and Sk
@@ -67,9 +67,9 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    and the f32 check.
 
 9. the sweep grid: (a) fig2 through ``repro_torch.figures.
-   fig2_synthetic.run`` at ``FIG2_GRID_REQUESTS`` = 10,000 requests
-   (cut from fig2's own 30,000: at 30,000 phases 0-10 alone took 949 s
-   on an H100 80GB HBM3 at 700 W, and phases 0-12 over 1300 s; 100
+   fig2_synthetic.run`` at ``FIG2_GRID_REQUESTS`` requests (cut from
+   fig2's own 30,000: at 30,000 phases 0-10 alone took 949 s on an
+   H100 80GB HBM3 at 700 W, and phases 0-12 over 1300 s; 100
    objects, Poisson and Pareto arrivals, C = 500 MB; the 11-policy roster
    with the recency residual and the rate residual's three policies, each
    with its LRU lane) through the kernels and, side by side in a second
@@ -78,12 +78,12 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    Poisson/recency improvement inside 3-30%, every policy's improvement
    printed; (b) lru / vacdh / stoch_vacdh x omega {0.5, 1, 2} x capacity
    {5%, 10%} of the touched footprint over phase 3's 2^20-object
-   universe (18 lanes, 943 MB of state) for ``GRID_REQUESTS`` = 5,000
-   requests (cut for the host-bound replay rate), kernels against plain
+   universe (18 lanes, 943 MB of state) for ``GRID_REQUESTS`` requests
+   (cut for the host-bound replay rate), kernels against plain
    versions bit for bit, three lanes against single-lane ``simulate``
    calls, with lane-requests/s and syncs per lane-request against the
    18 one-lane runs' wall extrapolated from those three;
-10. streaming: ``realworld_raw`` (20,000 requests, cut from
+10. streaming: ``realworld_raw`` (``STREAM_REQUESTS`` requests, cut from
    fig_realworld's 1,000,000 for time; 200,000 keys, epoch times from
    1.7e9 s) compacted as fig_realworld does (top 4096 + a pool of 512,
    capacity 10% of the footprint) and replayed by ``simulate_stream``
@@ -98,20 +98,21 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    scored by ``ranking_scores`` over the table, every eviction an argmin
    with the id tie-break) through the kernels and the plain versions,
    and the dense ``evict_top=0`` replay of the same stream, all bit for
-   bit; a ``SLOT_PREFIX`` = 5,000-request prefix under hash seeds 0 and 1
+   bit; a ``SLOT_PREFIX``-request prefix under hash seeds 0 and 1
    (bit for bit) and through a table of half its keys (reclaim fires),
    kernels against plain versions bit for bit with every request
    counted; one eviction's pick at 2^19 slots, its device kernels
    (``torch.profiler``) and time with the id and the position tie-break;
 12. the hierarchy: (a) ``fig6_hierarchy.run`` over its default grid
    (routes hash and random x S 1 and 4, each a grid of 4 hop laws x 3
-   policies x L2 0/2000) cut to ``HIER_REQUESTS`` = 5,000 requests, with
+   policies x L2 0/2000) cut to ``HIER_REQUESTS`` requests (at 5,000
+   phase 12 took 199.9 s on an H100 80GB HBM3 at 700 W), with
    the kernel writes and, side by side in a second process, the plain
    writes, every point bit for bit, the eq.-16 improvement over LRU
    printed per route, S, hop law and L2 capacity; (b) 4 hash-routed L1 shards (stoch_vacdh,
    5% of the touched footprint each) over an LRU L2 (20%), exponential
    hops of mean 0.01 s, over phase 3's 2^20-object universe (5 lanes,
-   262 MB of state) for the same 5,000 requests, kernel writes against
+   262 MB of state) for the same ``HIER_REQUESTS`` requests, kernel writes against
    plain writes bit for bit, with req/s and syncs per request;
 13. serving: the prefix-cache engine on a 600-request flash crowd on the
    card against the CPU (every counter, the latency sum and the sketch);
@@ -120,7 +121,7 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    through an L1 + L2, SLO bisections) through the kernels and through
    the plain versions, every row field but ``bench_serving.MEASURED``
    equal, with req/s, syncs per request and ranking and lane-scatter
-   launches an admission; (b) flash_crowd at ``SERVE_REQUESTS`` = 20,000
+   launches an admission; (b) flash_crowd at ``SERVE_REQUESTS``
    requests over ``N_KEYS`` keys through a ``SERVE_OBJECTS`` = 2^18-object
    prefix table (25% of the footprint, hedged), eq. 16 (through
    ``ranking_victim_order``) and LRU (its epilogue and a sort on the
@@ -130,15 +131,54 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    once an eq.-16 admission and the lane scatter at least once a rank;
 14. the sweep fabric: (a) ``bench_sweep``'s 24-lane scaling grid
    (stoch_vacdh, 8 omegas x 3 capacities, 100 objects, eq. 16 through
-   ``ranking_victim_order``) at ``FABRIC_REQUESTS`` = 5,000 requests, (b)
+   ``ranking_victim_order``) at ``FABRIC_REQUESTS`` requests, (b)
    the same grid with lru and vacdh lanes beside stoch_vacdh (72 lanes)
-   at ``FABRIC_MULTI_REQUESTS`` = 2,500 (cut: at 5,000 phase 14 took
-   97 s on an H100 80GB HBM3 at 700 W, over its 90 s), (c) fig6's
-   hash route at S = 4 with its 4 hop laws at ``FABRIC_HIER_REQUESTS`` =
-   2,000 requests: each in process and through ``mesh=make_data_mesh(1)``
+   at ``FABRIC_MULTI_REQUESTS``, (c) fig6's hash route at S = 4 with its
+   4 hop laws at ``FABRIC_HIER_REQUESTS`` requests: each in process and through ``mesh=make_data_mesh(1)``
    (one worker process on the card), every field bit for bit, the
    worker's launches counted, with both lane-requests/s and the worker's
-   start-up seconds; (d) ``devices=2`` must raise on a one-card machine.
+   start-up seconds; (d) ``devices=2`` must raise on a one-card machine;
+15. ``phi3.5-moe-42b-a6.6b`` at full width (d 4096, 32 q / 8 KV heads of
+   128, 16 experts of d_ff 6400, top-2, vocab 32064, bf16, random weights
+   from a seed) cut to ``MOE_LAYERS`` = 8 of its 32 layers (10.7 B
+   parameters, 21.3 GB; the whole model is ~84 GB in bf16, more than the
+   card's 80 GB) behind the batcher as in phase 5, through the kernels
+   and the plain versions (``flash_attention`` once a layer per prompt,
+   ``decode_attention`` once a layer per decoded token), with the device
+   idle share of one request (run again, then under ``torch.profiler``) and
+   ``torch.cuda.max_memory_allocated``; then an f32 check at
+   ``MOE_CHECK_LAYERS`` = 2 layers: every MoE call's top-2 expert choices
+   equal between the kernel and the plain path (the smallest router
+   margin printed), then phase 5's logits check;
+16. training: (a) the ``FlashAttention`` and ``GLAChunk`` autograd
+   Functions on the card against autograd of their plain versions in f32
+   (GQA, windows, a softcap and a sink; chunks 16 and 64), outputs and
+   gradients within phase 4's and phase 6's f32 bounds; (b)
+   ``make_train_step`` on phi3.5-MoE at full width, 2 layers (2.86 B
+   parameters, bf16, remat "full"), 8 sequences of 512 tokens in 2
+   microbatches, 4 steps on one batch: every loss finite, the last below
+   the first, ``flash_attention`` launched twice a layer per microbatch
+   (the forward and the checkpoint's recompute), with step seconds, train
+   tokens/s, peak memory and the idle share of one more profiled step;
+   (c) one ``value_and_grad`` of the phi3.5-MoE smoke config in f32 on the
+   card against the CPU, loss and every gradient within atol 1e-5 + rtol
+   1e-4; (d) the ``Trainer`` at smoke size on the card, checkpoints every 2
+   steps, SIGTERM after step 3 (its preemption flag), resumed to step 6,
+   the restored state bitwise the saved one (checkpoints stay at smoke
+   size: a full-width one would be ~40 GB).
+
+Depth cuts for the 1,200 s limit: the replays of phases 2-3 and 9-14
+are host-bound, and with phases 15-16 added the script took 1020.5 s on
+an H100 80GB HBM3 at 700 W in one run and over 1,200 s in a second run
+of the same tree on the same kind of card.  So each of those replays
+runs at half its earlier depth: ``PAPER_REQUESTS`` 30,000 -> 10,000,
+``DEPLOY_REQUESTS`` 20,000 -> 10,000, ``FIG2_GRID_REQUESTS`` 10,000 ->
+5,000, ``GRID_REQUESTS`` 5,000 -> 2,500, ``STREAM_REQUESTS`` 20,000 ->
+10,000, ``SLOT_PREFIX`` 5,000 -> 2,500, ``HIER_REQUESTS`` 2,500 ->
+1,250, ``SERVE_REQUESTS`` 20,000 -> 10,000, and ``FABRIC_REQUESTS`` /
+``FABRIC_MULTI_REQUESTS`` / ``FABRIC_HIER_REQUESTS`` 5,000 / 2,500 /
+2,000 -> 2,500 / 1,250 / 1,000.  The shapes (object universes, key
+spaces, tables, lanes, models) are unchanged.
 
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
@@ -170,12 +210,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
-GRID_REQUESTS = 5_000         # phase 9b's replay, cut for the host-bound rate
-FIG2_GRID_REQUESTS = 10_000   # phases 9a-10's fig2, cut for the time limit
-STREAM_REQUESTS = 20_000      # phases 10-11's stream, cut from 1,000,000
+PAPER_REQUESTS = 10_000       # phase 2's fig2 workload, cut from 30,000
+DEPLOY_REQUESTS = 10_000      # phase 3's replay, cut from 20,000
+GRID_REQUESTS = 2_500         # phase 9b's replay, cut from 5,000
+FIG2_GRID_REQUESTS = 5_000    # phases 9a-10's fig2, cut from 10,000
+STREAM_REQUESTS = 10_000      # phases 10-11's stream, cut from 20,000
 N_KEYS = 200_000              # fig_realworld's key space
-SLOT_PREFIX = 5_000           # phase 11's seed and reclaim runs
-HIER_REQUESTS = 5_000         # phase 12's hierarchies, cut for the host rate
+SLOT_PREFIX = 2_500           # phase 11's seed and reclaim runs, from 5,000
+HIER_REQUESTS = 1_250         # phase 12's hierarchies, cut from 2,500
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 8                # phase 15: 8 of 32 layers (~84 GB in all)
+MOE_CHECK_LAYERS = 2          # phase 15's f32 check, phase 16(b)'s model
 
 
 def log(*a):
@@ -494,7 +539,8 @@ def phase_paper(launches: dict) -> None:
     log("phase 2: small trace (60 objects, 2000 requests): card == CPU for "
         "stoch_vacdh, lru, lru_mad")
 
-    spec = SyntheticSpec(n_objects=100, n_requests=30_000, zipf_alpha=0.9,
+    spec = SyntheticSpec(n_objects=100, n_requests=PAPER_REQUESTS,
+                         zipf_alpha=0.9,
                          rate=2000.0, latency_base=0.005,
                          latency_per_mb=2e-4, stochastic=True)
     tr = synthetic_trace(torch.Generator().manual_seed(0), spec)
@@ -514,7 +560,8 @@ def phase_paper(launches: dict) -> None:
         raise AssertionError(f"fig2: kernels {float(impr)} {counts} != "
                              f"plain {float(plain)} {plain_counts}")
     impr = float(impr)
-    log(f"phase 2: fig2 workload (100 objects, 30000 requests, C=500 MB): "
+    log(f"phase 2: fig2 workload (100 objects, {PAPER_REQUESTS} requests, "
+        f"C=500 MB): "
         f"improvement over LRU {impr * 100:.3f}% (paper band 3-30%), "
         f"kernels == plain bitwise")
     if not 0.03 <= impr <= 0.30:
@@ -856,12 +903,12 @@ def check_f32(phase: int, cfg, params, prompts, steps: int = 16) -> None:
         f"1e-3 of max |logit|)")
 
 
-def build_model(phase: int, arch: str):
+def build_model(phase: int, arch: str, n_layers: int | None = None):
     import torch
     from repro_torch.launch.serve import build
     from repro_torch.models import transformer as tf
     t0 = time.perf_counter()
-    cfg, params = build(arch)
+    cfg, params = build(arch, n_layers=n_layers)
     torch.cuda.synchronize()
     n = tf.n_params(params)
     log(f"phase {phase}: {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
@@ -875,19 +922,22 @@ def build_model(phase: int, arch: str):
 
 
 def phase_serve(phase: int, arch: str, launches: dict,
-                per_prompt: tuple, per_token: tuple) -> None:
-    """``arch`` at full width behind the continuous batcher (max_batch 4,
-    8 requests of 512-2048 prompt tokens, 32 new tokens each), through the
-    kernels and through their plain versions; then the f32 logits check.
+                per_prompt: tuple, per_token: tuple,
+                n_layers: int | None = None, f32_check: bool = True):
+    """``arch`` at full width (cut to ``n_layers`` if given) behind the
+    continuous batcher (max_batch 4, 8 requests of 512-2048 prompt tokens,
+    32 new tokens each), through the kernels and through their plain
+    versions; then the f32 logits check unless ``f32_check`` is false.
     The kernel run must launch each kernel of ``per_prompt`` once a layer
-    per prompt and each of ``per_token`` once a layer per decoded token."""
+    per prompt and each of ``per_token`` once a layer per decoded token.
+    Returns (cfg, params, prompts, the kernel run's ``serve`` result)."""
     import dataclasses
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import random_prompts, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, params = build_model(phase, arch)
+    cfg, params = build_model(phase, arch, n_layers)
     prompts = random_prompts(cfg, 8, 512, 2049)
     max_new = 32
     log(f"phase {phase}: 8 requests, prompt lengths "
@@ -933,7 +983,9 @@ def phase_serve(phase: int, arch: str, launches: dict,
                for a, b in zip(qa.out, qb.out))
     log(f"phase {phase}: greedy tokens equal to the plain run's: {same} of "
         f"{8 * max_new} ({same / (8 * max_new):.4f})")
-    check_f32(phase, cfg, params, prompts[:2])
+    if f32_check:
+        check_f32(phase, cfg, params, prompts[:2])
+    return cfg, params, prompts, runs[True]
 
 
 # --- phase 6: the gla_chunk kernel ---------------------------------------------
@@ -1258,9 +1310,8 @@ def phase_stream(launches: dict, grids: dict) -> None:
                                          compact_requests, realworld_raw,
                                          synthetic_trace)
 
-    n_req = 20_000
-    raw = realworld_raw(RealWorldSpec(n_requests=n_req, n_keys=200_000,
-                                      seed=0))
+    raw = realworld_raw(RealWorldSpec(n_requests=STREAM_REQUESTS,
+                                      n_keys=N_KEYS, seed=0))
     stream, stats = compact_requests(raw, top_k=4096, n_recycle=512)
     cap = 0.1 * float(stream.sizes.sum())
     log(f"phase 10: stream of {stream.n_requests} requests (cut from "
@@ -1554,7 +1605,7 @@ def phase_hier(launches: dict) -> None:
 
 
 # --- phase 13: the serving engine --------------------------------------------
-SERVE_REQUESTS = 20_000       # phase 13(b)'s flash crowd
+SERVE_REQUESTS = 10_000       # phase 13(b)'s flash crowd, cut from 20,000
 SERVE_OBJECTS = 1 << 18       # phase 13(b)'s prefix table
 
 
@@ -1699,9 +1750,9 @@ def phase_serving(launches: dict) -> None:
 
 
 # --- phase 14: the sweep fabric on the card ----------------------------------
-FABRIC_REQUESTS = 5_000       # phase 14(a)'s grid
-FABRIC_MULTI_REQUESTS = 2_500  # 14(b)'s, cut for phase 14's 90 s
-FABRIC_HIER_REQUESTS = 2_000  # phase 14(c)'s fig6 route
+FABRIC_REQUESTS = 2_500       # phase 14(a)'s grid, cut from 5,000
+FABRIC_MULTI_REQUESTS = 1_250  # 14(b)'s, cut from 2,500
+FABRIC_HIER_REQUESTS = 1_000  # phase 14(c)'s fig6 route, cut from 2,000
 
 
 def fabric_pair(label: str, fn, needs, launches: dict, arrays):
@@ -1800,9 +1851,363 @@ def phase_fabric(launches: dict) -> None:
             f"checked")
 
 
+# --- phases 15-16: phi3.5-MoE served and trained at full width ---------------
+def profiled_busy(fn) -> float:
+    """Device-busy seconds of one ``fn()`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.profile_replay import _device_seconds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_seconds(prof)
+
+
+def moe_router_recorder(rec: list):
+    """A stand-in for ``models.moe.moe_apply`` that records each call's
+    expert ids (T, k) and its smallest router margin (the least gap
+    between neighbours among the top k + 1 probabilities) in ``rec``."""
+    import torch
+    from repro_torch.models import moe
+    inner = moe.moe_apply
+
+    def recording(p, x, *, top_k, **kw):
+        probs, _, idx = moe.route(p["router"], x.reshape(-1, x.shape[-1]),
+                                  top_k)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        gap = (srt[:, :top_k] - srt[:, 1:top_k + 1]).min()
+        rec.append((idx, float(gap)))
+        return inner(p, x, top_k=top_k, **kw)
+    return recording
+
+
+def check_moe_f32(cfg, params, prompts, steps: int = 16) -> None:
+    """f32 at 2 layers of full width: each MoE layer's expert choices equal
+    between the kernel and the plain path (the smallest router margin
+    printed), then prefill and ``steps`` teacher-forced decode logits
+    within 1e-3 of max |logit|, as ``check_f32``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=MOE_CHECK_LAYERS)
+    p32 = to_f32({**params, "layers": params["layers"][:MOE_CHECK_LAYERS]})
+    inner = tf.moe_apply
+    worst, margin, calls = 0.0, float("inf"), 0
+    try:
+        for i, prompt in enumerate(prompts):
+            recs = {}
+            for mode in ("ref", True):
+                recs[mode] = []
+                tf.moe_apply = moe_router_recorder(recs[mode])
+                out = run_request(dataclasses.replace(cfg32, use_kernel=mode),
+                                  p32, prompt, steps,
+                                  None if mode == "ref" else feed)
+                if mode == "ref":
+                    want, feed = out[0], out[1]
+                else:
+                    got = out[0]
+            if len(recs[True]) != len(recs["ref"]):
+                raise AssertionError("the two paths made different numbers "
+                                     "of MoE calls")
+            for j, ((a, ga), (b, _)) in enumerate(zip(recs[True],
+                                                      recs["ref"])):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"prompt {i}, MoE call {j}: the kernel path chose "
+                        f"other experts for "
+                        f"{int((a != b).any(-1).sum())} tokens (smallest "
+                        f"router margin {ga:.3e})")
+            margin = min(margin, min(g for _, g in recs["ref"]))
+            calls += len(recs[True])
+            rel = float((got - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+            log(f"phase 15: f32 prompt {i} ({len(prompt)} tokens, "
+                f"{MOE_CHECK_LAYERS} layers): {len(recs[True])} MoE calls "
+                f"with equal top-{cfg.top_k} choices; prefill + {steps} "
+                f"teacher-forced decode logits, kernels vs plain: max |diff|"
+                f" / max |logit| = {rel:.3e}")
+            if not rel <= 1e-3 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"f32 logits of the kernel path differ "
+                                     f"from the plain path by {rel} of max "
+                                     f"|logit|")
+    finally:
+        tf.moe_apply = inner
+    log(f"phase 15: f32 check passed: expert choices equal in all {calls} "
+        f"MoE calls (smallest router margin {margin:.3e}), logits max "
+        f"{worst:.3e} <= 1e-3 of max |logit|")
+
+
+def phase_moe_serve(launches: dict) -> None:
+    """phi3.5-MoE at full width, 8 of its 32 layers, behind the batcher as
+    in phase 5; its device idle share and peak memory; the f32 check at 2
+    layers."""
+    import torch
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, prompts, run = phase_serve(
+        15, MOE_ARCH, launches, ("flash_attention",), ("decode_attention",),
+        n_layers=MOE_LAYERS, f32_check=False)
+    t1 = time.perf_counter()
+    # the idle share of one request (prefill and 31 decodes): its
+    # unprofiled wall against the device time of the same work profiled
+    # (the profiler's own cost is ~20 s a request)
+    few = prompts[:1]
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    serve(cfg, params, few, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    busy = profiled_busy(lambda: serve(cfg, params, few, 32))
+    t2 = time.perf_counter()
+    log(f"phase 15: {cfg.name} ({cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff}, top-{cfg.top_k}): prefill "
+        f"{run['prefill_tokens'] / run['prefill_s']:.1f} tok/s, decode "
+        f"{run['decode_tokens'] / run['decode_s']:.1f} tok/s; one request:"
+        f" device busy {busy:.3f} s of {wall:.3f} s, idle share "
+        f"{1 - busy / wall:.4f}; torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_moe_f32(cfg, params, prompts[:2])
+    log(f"phase 15: seconds: serve runs {t1 - t0:.1f}, profile "
+        f"{t2 - t1:.1f}, f32 check {time.perf_counter() - t2:.1f}")
+
+
+def phase_train_grads() -> None:
+    """16(a): the FlashAttention and GLAChunk autograd Functions on the card
+    (f32) against autograd of their plain versions on the same inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.gla_chunk import GLAChunk
+    from repro_torch.kernels.ref import flash_attention_ref, gla_chunk_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+
+    def grads(fn, ins, ws):
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum(torch.sum(o * w) for o, w in zip(outs, ws))
+        return outs, torch.autograd.grad(
+            loss, [t for t in ins if t is not None])
+
+    worst = 0.0
+    for h, kv, window, softcap, sink in ((8, 2, 0, 0.0, 0),
+                                         (8, 8, 48, 0.0, 0),
+                                         (12, 4, 64, 30.0, 8)):
+        b, s, dh = 2, 200, 64
+        ins = [rnd(b, s, n, dh).requires_grad_() for n in (h, kv, kv)]
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")
+        ws = [rnd(b, s, h, dh)]
+        o1, g1 = grads(lambda *a: FlashAttention.apply(
+            *a, pos, pos, window, softcap, sink), ins, ws)
+        o2, g2 = grads(lambda *a: flash_attention_ref(
+            *a, pos, pos, window=window, softcap=softcap, sink=sink),
+            ins, ws)
+        err = max(float((x - y).detach().abs().max()) for x, y in
+                  zip((*o1, *g1), (*o2, *g2)))
+        worst = max(worst, err)
+        log(f"phase 16(a): FlashAttention H {h} / KV {kv}, window {window}, "
+            f"softcap {softcap}, sink {sink}: output and dq, dk, dv against "
+            f"autograd of the plain version, max |diff| {err:.3e}")
+        if not err <= 1e-5:
+            raise AssertionError(f"FlashAttention's output or gradients "
+                                 f"differ by {err} > 1e-5")
+    for chunk in (16, 64):
+        b, s, h, dk, dv = 2, 128, 2, 64, 64
+        ins = [rnd(b, s, h, dk).requires_grad_(),
+               rnd(b, s, h, dk).requires_grad_(),
+               rnd(b, s, h, dv).requires_grad_(),
+               torch.nn.functional.logsigmoid(rnd(b, s, h)).requires_grad_(),
+               (rnd(b, s, h) * 0.5).requires_grad_()]
+        ws = [rnd(b, s, h, dv), rnd(b, h, dk, dv), rnd(b, h, dk)]
+        o1, g1 = grads(lambda *a: GLAChunk.apply(*a, None, None, chunk,
+                                                 True), ins, ws)
+
+        def plain(*a):
+            y, (st, n) = gla_chunk_plain(*a, chunk=chunk)
+            return y, st, n
+        o2, g2 = grads(plain, ins, ws)
+        err = max(within(x.detach(), y.detach(), False)
+                  for x, y in zip((*o1, *g1), (*o2, *g2)))
+        log(f"phase 16(a): GLAChunk chunk {chunk}: y, S, n and the five "
+            f"gradients against autograd of the plain version, max |diff| "
+            f"/ (1e-4 + 1e-3 |want|) = {err:.3e}")
+        if not err <= 1.0:
+            raise AssertionError(f"GLAChunk differs from its plain version "
+                                 f"({err} of the bound)")
+    log(f"phase 16(a): passed (attention max |diff| {worst:.3e})")
+
+
+def phase_train_step(launches: dict) -> None:
+    """16(b): ``make_train_step`` on phi3.5-MoE at full width, 2 layers,
+    bf16, 8 sequences of 512 tokens in 2 microbatches, 4 steps on one
+    batch; the loss finite and falling, ``flash_attention`` launched once
+    a layer per microbatch forward and once more in the recompute of the
+    config's remat ("full")."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import OptConfig, init_opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(registry.get(MOE_ARCH),
+                              n_layers=MOE_CHECK_LAYERS)
+    steps, nm, seq, batch_n = 4, 2, 512, 8
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    params = tf.init_params(gen, cfg)
+    opt = init_opt(params)
+    tcfg = TrainConfig(microbatches=nm, opt=OptConfig(
+        lr=3e-4, warmup_steps=1, total_steps=steps))
+    step_fn = make_train_step(cfg, tcfg)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                                global_batch=batch_n), 0)
+    log(f"phase 16(b): {cfg.name} at {cfg.n_layers} layers, "
+        f"{tf.n_params(params) / 1e9:.3f} B parameters, bf16, remat "
+        f"{cfg.remat!r}, batch {tuple(batch['tokens'].shape)} in {nm} "
+        f"microbatches, {steps} steps on one batch")
+    reset_launch_counts()
+    losses, secs = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        log(f"phase 16(b): step {i + 1}: {secs[-1]:.3f} s, loss "
+            f"{losses[-1]:.4f}, aux {float(m['aux']):.4f}, grad_norm "
+            f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3e}")
+    lc = launch_counts()
+    per = 2 if cfg.remat == "full" else 1
+    want = cfg.n_layers * nm * steps * per
+    if lc["flash_attention"] != want:
+        raise AssertionError(f"the train steps launched flash_attention "
+                             f"{lc['flash_attention']} times, not {want}")
+    if any(v for k, v in lc.items() if k != "flash_attention"):
+        raise AssertionError(f"the train steps launched {lc}")
+    add_launches(launches, lc)
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the last loss {losses[-1]} is not below the "
+                             f"first {losses[0]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = statistics.mean(secs[1:])
+    busy = profiled_busy(lambda: step_fn(params, opt, batch))
+    tokens = batch["tokens"].numel()
+    log(f"phase 16(b): steps 2-{steps} {warm:.3f} s each "
+        f"({tokens / warm:.1f} train tokens/s), first {secs[0]:.3f} s; "
+        f"flash_attention launches {lc['flash_attention']} ({per} a layer "
+        f"per microbatch); peak memory (torch.cuda.max_memory_allocated) "
+        f"{peak:.2f} GB; one more step profiled: device busy {busy:.3f} s, "
+        f"idle share {1 - busy / warm:.4f}")
+    del params, opt
+
+
+def phase_train_cpu_parity() -> None:
+    """16(c): one ``value_and_grad`` of the phi3.5-MoE smoke config in f32
+    on the card (kernels) against the CPU (plain versions)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.smoke(MOE_ARCH), dtype="float32")
+    params = tf.init_params(torch.Generator().manual_seed(3), cfg)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=65,
+                                global_batch=4), 0, device="cpu")
+    (l_c, m_c), g_c = value_and_grad(params, cfg, batch)
+    on = lambda t: tree_map(lambda x: x.cuda(), t)
+    (l_g, m_g), g_g = value_and_grad(on(params), cfg, on(batch))
+    worst = 0.0
+    pairs = [(l_g, l_c), (m_g["aux"], m_c["aux"])] + list(
+        zip(tree_leaves(g_g), tree_leaves(g_c)))
+    for a, b in pairs:
+        b = b.float()
+        worst = max(worst, float(((a.cpu().float() - b).abs()
+                                  / (1e-5 + 1e-4 * b.abs())).max()))
+    log(f"phase 16(c): {cfg.name} f32 value_and_grad, card vs CPU: loss "
+        f"{float(l_g):.6f} vs {float(l_c):.6f}, aux {float(m_g['aux']):.6f};"
+        f" {len(pairs) - 2} gradient leaves; max |diff| / (1e-5 + 1e-4 "
+        f"|cpu|) = {worst:.3e}")
+    if not worst <= 1.0:
+        raise AssertionError(f"the card's loss or gradients differ from the "
+                             f"CPU's ({worst} of the bound)")
+
+
+def phase_trainer() -> None:
+    """16(d): the ``Trainer`` at smoke size on the card: checkpoints every 2
+    steps, SIGTERM after step 3 (its preemption flag), a resumed run to
+    step 6; the restored state bitwise the saved one."""
+    import dataclasses
+    import signal
+    import tempfile
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.training.optimizer import OptConfig, tree_leaves
+    from repro_torch.training.train_loop import TrainConfig
+    from repro_torch.training.trainer import RunConfig, Trainer
+    cfg = dataclasses.replace(registry.smoke(MOE_ARCH), remat="none")
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=6))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=33, global_batch=8)
+
+    def preempt(msg):
+        log(f"phase 16(d): {msg}")
+        if msg.startswith("[trainer] step 3:"):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    old = signal.getsignal(signal.SIGTERM)
+    with tempfile.TemporaryDirectory() as d:
+        rcfg = RunConfig(steps=6, ckpt_every=2, log_every=1, ckpt_dir=d)
+        try:
+            t1 = Trainer(cfg, tcfg, dcfg, rcfg, log_fn=preempt)
+            out1 = t1.run()
+        finally:
+            signal.signal(signal.SIGTERM, old)
+        if not out1["preempted"] or out1["final_step"] != 3:
+            raise AssertionError(f"the trainer did not stop at step 3: "
+                                 f"{out1['final_step']}")
+        t2 = Trainer(cfg, tcfg, dcfg, rcfg, log_fn=preempt)
+        if t2.start_step != 3:
+            raise AssertionError(f"resumed at {t2.start_step}, not 3")
+        for a, b in zip(tree_leaves(t2.state()), tree_leaves(t1.state())):
+            if a.dtype != b.dtype or a.device != b.device or \
+                    not torch.equal(a, b):
+                raise AssertionError("the restored state differs from the "
+                                     "saved one")
+        out2 = t2.run()
+        if out2["final_step"] != 6 or out2["preempted"]:
+            raise AssertionError(f"the resumed run ended at "
+                                 f"{out2['final_step']}")
+        losses = [h["loss"] for h in out1["history"] + out2["history"]]
+    log(f"phase 16(d): preempted at step 3, restored bit for bit on "
+        f"{t2.device}, resumed to step 6; losses "
+        f"{[round(x, 4) for x in losses]}")
+
+
+def phase_train(launches: dict) -> None:
+    phase_train_grads()
+    phase_train_step(launches)
+    phase_train_cpu_parity()
+    phase_trainer()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--requests", type=int, default=20_000,
+    ap.add_argument("--requests", type=int, default=DEPLOY_REQUESTS,
                     help="requests of the deployment-size replay (phase 3)")
     args = ap.parse_args()
 
@@ -1845,8 +2250,10 @@ def main() -> int:
     timed("12", phase_hier, launches)
     timed("13", phase_serving, launches)
     timed("14", phase_fabric, launches)
+    timed("15", phase_moe_serve, launches)
+    timed("16", phase_train, launches)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3 and 5-14: "
+    log(f"launches over the main-path runs of phases 2-3, 5 and 7-16: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

@@ -2,10 +2,11 @@
 
 The same dataclasses and fields as the JAX package's ``configs/base.py``.
 ``torch_dtype``/``kv_torch_dtype`` take the place of its ``jdtype``/
-``kv_jdtype``.  ``scan_layers``, ``remat``, ``gla_unroll`` and
-``attn_unroll`` steer how XLA lowers the JAX model; they are kept as data
-so that configs compare field for field, and the port ignores them (its
-layers run in a Python loop, and it has no backward pass yet).
+``kv_jdtype``.  ``scan_layers``, ``gla_unroll`` and ``attn_unroll`` steer
+how XLA lowers the JAX model; they are kept as data so that configs
+compare field for field, and the port ignores them (its layers run in a
+Python loop).  ``remat`` picks the training forward's recomputation
+(:mod:`repro_torch.models.transformer`).
 ``use_kernel`` is ``True`` (the attention kernels, the default) or
 ``"ref"`` (their plain versions); the JAX default ``False`` selects an XLA
 route the port does not have (see :mod:`repro_torch.models.attention`).

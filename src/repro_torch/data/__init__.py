@@ -1,1 +1,1 @@
-"""Trace generators for the port."""
+"""Trace, scenario and token generators for the port."""

@@ -358,7 +358,9 @@ def gla_chunk_plain(q, k, v, log_f, log_i, *, chunk: int = 256,
         y_inter = qd @ S
         n_inter = (qd @ n[..., None])[..., 0]
         gpos = bx[..., :, None] - bx[..., None, :] + lx[..., None, :]
-        gmat = torch.where(tri, torch.exp(gpos), 0.0)
+        # the inner where keeps exp's overflow above the diagonal out of
+        # the backward (0 * inf); the forward is unchanged
+        gmat = torch.where(tri, torch.exp(torch.where(tri, gpos, 0.0)), 0.0)
         A = (qc @ kc.transpose(-1, -2)) * gmat
         y = A @ vc + y_inter
         if normalize:

@@ -1,12 +1,19 @@
 """Serving entry point of the port: continuous batching over a model with
-random weights (the dense-block families and xLSTM).
+random weights (the dense-block and MoE families and xLSTM).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --device cpu                       # tiny, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
                                                    # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi3.5-moe-42b-a6.6b --layers 8     # 8 of its 32 layers
+
+``--layers`` cuts the depth of a config (phi3.5-MoE's 32 layers are about
+84 GB in bf16, more than one 80 GB card holds).
 
 A config with meta tokens (Hymba) is refused: the batcher, like the JAX
 package's, decodes at the prompt's length and leaves out the meta-token
@@ -21,6 +28,7 @@ seeded 0 on the device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,11 +41,15 @@ from ..serving.scheduler import ContinuousBatcher, Request, SchedulerConfig
 from ..training.train_loop import make_serve_steps
 
 
-def build(arch: str, *, smoke: bool = False, device=None):
-    """The config (or its smoke reduction) and random parameters on
-    ``device`` (None: the card), drawn from a generator seeded 0."""
+def build(arch: str, *, smoke: bool = False, device=None,
+          n_layers: int | None = None):
+    """The config (or its smoke reduction, cut to ``n_layers`` if given)
+    and random parameters on ``device`` (None: the card), drawn from a
+    generator seeded 0."""
     dev = resolve_device(device)
     cfg = registry.smoke(arch) if smoke else registry.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(0)
     return cfg, tf.init_params(gen, cfg)
 
@@ -110,10 +122,13 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg, params = build(args.arch, smoke=args.smoke, device=dev)
+    cfg, params = build(args.arch, smoke=args.smoke, device=dev,
+                        n_layers=args.layers)
     prompts = random_prompts(cfg, args.requests, 4, 16)
     r = serve(cfg, params, prompts, args.max_new, device=dev)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"

@@ -9,7 +9,11 @@ position to the decode kernel
 (:func:`repro_torch.kernels.decode_attention.decode_attention`).  Each
 wrapper launches its CUDA kernel for a tensor on the card and runs its
 plain version for a tensor on the CPU; ``use_kernel="ref"`` runs the plain
-versions on the card too (the on-card oracle of the kernel path).  Any
+versions on the card too (the on-card oracle of the kernel path).  When
+autograd records (grad enabled and q, k or v requiring grad), every query
+block goes through :class:`repro_torch.kernels.flash_attention.
+FlashAttention`: the prefill kernel forward and the plain version's
+gradients (the decode kernel has no backward; it serves only).  Any
 other value of ``use_kernel`` than ``True`` and ``"ref"`` raises: the JAX
 module's ``False`` (its XLA route) has no counterpart here.
 
@@ -27,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttention, flash_attention
 from ..kernels.ref import decode_attention_ref, flash_attention_ref
 from .layers import apply_rope, init_dense
 
@@ -53,6 +57,11 @@ def sdpa(q, k, v, q_pos, k_pos, *, window: int = 0, softcap: float = 0.0,
         raise ValueError(f"use_kernel must be True (the kernels) or 'ref' "
                          f"(their plain versions), not {use_kernel!r}")
     plain = use_kernel == "ref"
+    if not plain and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        # training: the prefill kernel forward, the plain version's backward
+        return FlashAttention.apply(q, k, v, q_pos, k_pos, window, softcap,
+                                    sink)
     if q.shape[1] > 1:
         fn = flash_attention_ref if plain else flash_attention
     else:

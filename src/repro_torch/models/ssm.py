@@ -13,8 +13,10 @@ kernel) and one step at a time in decode (:func:`gla_decode_step`, plain
 PyTorch, as in the JAX package).  ``use_kernel=True`` takes the kernel
 (its plain version for CPU tensors), ``"ref"`` the plain version on any
 device; the JAX module's XLA route (``use_kernel=False``) and its
-``unroll`` knob have no counterpart here.  Parameters are plain dicts;
-the leaves the JAX package keeps in f32 inside a bf16 model
+``unroll`` knob have no counterpart here.  When autograd records, the
+kernel route goes through :class:`repro_torch.kernels.gla_chunk.GLAChunk`
+(the kernel forward, the plain version's gradients).  Parameters are
+plain dicts; the leaves the JAX package keeps in f32 inside a bf16 model
 (:data:`F32_LEAVES`) are f32 here too.
 """
 from __future__ import annotations
@@ -22,14 +24,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.gla_chunk import gla_chunk
+from ..kernels.gla_chunk import GLAChunk, gla_chunk
 from ..kernels.ref import gla_chunk_plain
 from .layers import init_dense
 
 # Parameter leaves created in f32 whatever the model's dtype (the gate and
-# step-size projections, the SSD decay and skip, the hybrid mixing scalars).
+# step-size projections, the SSD decay and skip, the hybrid mixing scalars,
+# the MoE router).
 F32_LEAVES = frozenset({"w_gates", "w_dt", "a_log", "d_skip", "b_attn",
-                        "b_mamba"})
+                        "b_mamba", "router"})
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +62,14 @@ def chunked_gla(q, k, v, log_f, log_i, *, chunk: int = 256,
                             chunk=chunk, normalize=normalize,
                             init_state=init_state, use_kernel=use_kernel)
         return y[:, :s], st
+    if use_kernel is True and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, log_f, log_i, *(init_state or ()))):
+        # training: the kernel forward, the plain version's backward
+        s0, n0 = init_state if init_state is not None else (None, None)
+        y, s_t, n_t = GLAChunk.apply(q, k, v, log_f, log_i, s0, n0, chunk,
+                                     normalize)
+        return y, (s_t, n_t)
     fn = gla_chunk if use_kernel is True else gla_chunk_plain
     return fn(q, k, v, log_f, log_i, chunk=chunk, normalize=normalize,
               init_state=init_state)

@@ -1,11 +1,10 @@
-"""Decoder model for the ``dense``, ``vlm``, ``audio``, ``ssm`` and
-``hybrid`` families.
-
-The counterpart of the JAX package's ``models/transformer.py``:
+"""Decoder model for every family of the JAX package's
+``models/transformer.py``:
 
   dense / vlm / audio - pre-norm attention + MLP blocks (vlm/audio take
       precomputed frontend embeddings, ``embeds``, and ``out_heads > 1``
       (MusicGen) splits the LM head into parallel codebook heads);
+  moe    - attention + top-k MoE blocks (:mod:`repro_torch.models.moe`);
   ssm    - xLSTM mLSTM blocks (self-contained mixers, d_ff = 0);
   hybrid - Hymba: parallel attention + Mamba heads per block, mixed as
       ``x + b_attn * attn + b_mamba * mamba``, and meta tokens prepended
@@ -13,37 +12,43 @@ The counterpart of the JAX package's ``models/transformer.py``:
 
 Three modes share one code path:
 
-  train   - full sequence, logits at every position (no backward yet);
+  train   - full sequence, logits at every position; the loss
+            (:func:`loss_fn`) and its gradients run through it;
   prefill - full sequence, last-token logits + the serving cache;
   decode  - one token + cache (KV ring buffer and recurrent state), at
             absolute ``pos0`` (which counts the meta tokens).
 
 Parameters are plain dicts; ``params["layers"]`` is a list of per-layer
-dicts, walked by a Python loop (the JAX model's ``lax.scan``, ``remat`` and
-sharding hints have no counterpart on one card).  The cache is a list of
-per-layer dicts: its KV tensors are updated in place, its recurrent state
-is replaced by each call's result.  The ``moe`` family is not ported yet
-and raises ``NotImplementedError``.
+dicts, walked by a Python loop (the JAX model's ``lax.scan`` and sharding
+hints have no counterpart on one card).  In train mode with autograd on,
+``cfg.remat == "full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` with
+``nothing_saveable`` does; ``"dots"`` (the JAX policy that keeps the
+products and recomputes the elementwise ops) keeps every activation here,
+as ``"none"`` does.  The cache is a list of per-layer dicts: its KV
+tensors are updated in place, its recurrent state is replaced by each
+call's result.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from .attention import attn_apply, init_attn, init_kv_cache
 from .layers import init_dense, init_embed, mlp_apply, mlp_init, rms_norm
+from .moe import init_moe, moe_apply
 from .ssm import (init_gla_state, init_mamba, init_mlstm, mamba_apply,
                   mlstm_apply)
 
-FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"has the families {FAMILIES}; MoE is ROADMAP queue 1, item 11")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); the "
+                         f"model has {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +62,10 @@ def _init_layer(g: torch.Generator, cfg: ModelConfig) -> dict:
         return p
     p["attn"] = init_attn(g, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt)
     p["ln2"] = torch.ones((d,), dtype=dt, device=g.device)
-    p["mlp"] = mlp_init(g, d, cfg.d_ff, cfg.mlp_act, dt)
+    if cfg.family == "moe":
+        p["moe"] = init_moe(g, d, cfg.d_ff, cfg.n_experts, cfg.mlp_act, dt)
+    else:
+        p["mlp"] = mlp_init(g, d, cfg.d_ff, cfg.mlp_act, dt)
     if cfg.family == "hybrid":
         p["mamba"] = init_mamba(g, d, int(d * cfg.ssm_proj), cfg.ssm_heads,
                                 cfg.ssm_state, dtype=dt)
@@ -146,6 +154,9 @@ def _recurrent(cache: dict | None, mode: str):
 
 def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
            mode: str):
+    """One block: (x, new cache or None, the MoE layer's f32 aux loss or
+    None for the other families)."""
+    aux = None
     h = rms_norm(x, p["ln1"])
     new_cache = None if cache is None else {}
     if cfg.family == "ssm":
@@ -155,7 +166,7 @@ def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
             chunk=cfg.gla_chunk, use_kernel=cfg.use_kernel)
         if cache is not None:
             new_cache["ssm"] = {"S": state[0], "n": state[1], "conv": tail}
-        return x + out, new_cache
+        return x + out, new_cache, aux
 
     attn_out, attn_cache = attn_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -178,8 +189,14 @@ def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
             new_cache["ssm"] = {"S": state[0], "n": state[1], "conv": tail}
     else:
         x = x + attn_out
-    x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg.mlp_act)
-    return x, new_cache
+    h2 = rms_norm(x, p["ln2"])
+    if cfg.family == "moe":
+        mlp_out, aux = moe_apply(p["moe"], h2, top_k=cfg.top_k,
+                                 act=cfg.mlp_act,
+                                 capacity_factor=cfg.capacity_factor)
+    else:
+        mlp_out = mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    return x + mlp_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +209,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
     tokens (B,S) integer ids or embeds (B,S,d) (vlm/audio stubs), on the
     parameters' device; decode: S == 1 and ``pos0`` is the absolute
     position of the incoming token, including the meta-token offset for
-    hybrid archs.  The aux loss is 0 (no MoE here).
+    hybrid archs.  The aux loss is the f32 sum of the MoE layers'
+    load-balance losses (0 for the other families).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -210,10 +228,19 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
     pos = (torch.full((1,), int(pos0), dtype=torch.int32, device=x.device)
            if mode == "decode"
            else torch.arange(s, dtype=torch.int32, device=x.device))
+    remat = (mode == "train" and cache is None and cfg.remat == "full"
+             and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None if cache is None else []
     for li, p_l in enumerate(params["layers"]):
         c_l = None if cache is None else cache[li]
-        x, c = _block(cfg, p_l, x, pos, c_l, mode)
+        if remat:
+            x, c, a = checkpoint(_block, cfg, p_l, x, pos, None, mode,
+                                 use_reentrant=False)
+        else:
+            x, c, a = _block(cfg, p_l, x, pos, c_l, mode)
+        if a is not None:
+            aux = aux + a
         if cache is not None:
             new_cache.append(c)
 
@@ -226,5 +253,37 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
     logits = x @ params["lm_head"]
     if cfg.out_heads > 1:
         logits = logits.reshape(*logits.shape[:-1], cfg.out_heads, cfg.vocab)
-    return logits, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+    return logits, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Losses (model-level; the train step lives in training/)
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -100) -> torch.Tensor:
+    """Mean f32 negative log-likelihood over the labels that are not
+    ``ignore``; (B,S,V) logits with (B,S) labels or (B,S,K,V) with
+    (B,S,K).  The label's logit is picked by index (the JAX function's
+    one-hot contraction picks the same value)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    valid = labels != ignore
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    picked = torch.gather(lf, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict,
+            aux_coef: float = 0.01):
+    """(loss, {"ce", "aux"}): ``ce + aux_coef * aux`` on a batch of
+    ``tokens`` or ``embeds`` and ``labels``; (B,S) labels are broadcast
+    over MusicGen's codebook heads."""
+    logits, _, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        mode="train")
+    labels = batch["labels"]
+    if cfg.out_heads > 1 and labels.dim() == 2:
+        labels = labels[..., None].expand(*labels.shape, cfg.out_heads)
+    ce = cross_entropy(logits, labels)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}

@@ -1,1 +1,2 @@
-"""Step factories of the port (serving only: training comes later)."""
+"""Training of the port: AdamW, int8 gradient compression, the train and
+serve steps, checkpoints and the preemption-safe trainer."""

@@ -1,5 +1,5 @@
-"""The port's LM (dense-block, xLSTM and Hymba families) against the JAX
-package's, on the CPU, in f32.
+"""The port's LM (dense-block, MoE, xLSTM and Hymba families) against the
+JAX package's, on the CPU, in f32.
 
 Both packages run the same weights: the JAX model's ``init_params`` pytree,
 handed to the port through ``convert.lm_params_from_arrays``.  The JAX side
@@ -28,7 +28,8 @@ from repro_torch.models import transformer as tf
 DENSE = ["stablelm-1.6b", "minitron-8b", "starcoder2-15b",
          "deepseek-coder-33b", "llava-next-mistral-7b", "musicgen-large"]
 RECURRENT = ["xlstm-350m", "hymba-1.5b"]
-PORTED = DENSE + RECURRENT
+MOE = ["phi3.5-moe-42b-a6.6b", "grok-1-314b"]
+PORTED = DENSE + MOE + RECURRENT
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 2, 17
 
@@ -54,7 +55,7 @@ def _jax_run(arch):
     first = {k: v[:, :S] for k, v in jin.items()}
     last = {k: v[:, S:] for k, v in jin.items()}
     m = jcfg.meta_tokens        # decode counts them (forward's contract)
-    train, _, _ = jtf.forward(jparams, jcfg, mode="train", **jin)
+    train, _, aux = jtf.forward(jparams, jcfg, mode="train", **jin)
     cache = jtf.init_cache(jcfg, B, m + S + 1)
     pre, cache, _ = jtf.forward(jparams, jcfg, cache=cache, mode="prefill",
                                 **first)
@@ -62,7 +63,7 @@ def _jax_run(arch):
                             mode="decode", **last)
     tree = jax.tree.map(np.asarray, jparams)
     return tree, inp, {"train": np.asarray(train), "prefill": np.asarray(pre),
-                       "decode": np.asarray(dec)}
+                       "decode": np.asarray(dec), "aux": float(aux)}
 
 
 def _port_inputs(inp, sl):
@@ -80,7 +81,9 @@ def test_forward_matches_jax(arch, mode):
     if mode == "train":
         got, cache, aux = tf.forward(params, cfg, mode="train",
                                      **_port_inputs(inp, slice(None)))
-        assert cache is None and float(aux) == 0.0
+        assert cache is None and aux.dtype == torch.float32
+        np.testing.assert_allclose(float(aux), want["aux"], **TOL)
+        assert (float(aux) > 0) == (cfg.family == "moe")
     else:
         cache = tf.init_cache(cfg, B, m + S + 1, device="cpu")
         got, cache, _ = tf.forward(params, cfg, cache=cache, mode="prefill",
@@ -237,12 +240,11 @@ def test_dtypes():
     assert _f32("stablelm-1.6b").torch_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b"])
-def test_unported_families_raise(arch):
-    cfg = registry.smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(registry.smoke("stablelm-1.6b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
         tf.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown family"):
         tf.init_cache(cfg, 1, 8, device="cpu")
 
 
@@ -252,12 +254,12 @@ def _dtypes(tree):
     return str(tree.dtype).replace("torch.", "")
 
 
-@pytest.mark.parametrize("arch", RECURRENT + ["stablelm-1.6b"])
+@pytest.mark.parametrize("arch", RECURRENT + MOE + ["stablelm-1.6b"])
 def test_bf16_leaf_dtypes_match_jax(arch):
     """In a bf16 model the leaves the JAX package keeps in f32 (mLSTM gate
     projection, Mamba step size, decay and skip, the hybrid mixing
-    scalars) stay f32, both from the port's init and through the
-    converter; every other leaf is bf16."""
+    scalars, the MoE router) stay f32, both from the port's init and
+    through the converter; every other leaf is bf16."""
     jcfg = jregistry.smoke(arch)
     jparams = jtf.init_params(jax.random.key(1), jcfg)
     want = {k: _dtypes(v) for k, v in jparams.items() if k != "layers"}

@@ -56,7 +56,11 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.serving.faults, repro_torch.serving.engine, "
         "repro_torch.figures.bench_serving, repro_torch.launch.mesh, "
         "repro_torch.launch.fabric, repro_torch.figures.bench_kernels, "
-        "repro_torch.figures.bench_sweep, repro_torch.figures.probe_memory\n"
+        "repro_torch.figures.bench_sweep, repro_torch.figures.probe_memory, "
+        "repro_torch.models.moe, repro_torch.data.tokens, "
+        "repro_torch.training.optimizer, repro_torch.training.compression, "
+        "repro_torch.training.checkpoint, repro_torch.training.trainer, "
+        "repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -95,6 +99,15 @@ def test_source_rule_covers_the_fabric_slice():
     for mod in ("launch/mesh.py", "launch/fabric.py",
                 "figures/bench_kernels.py", "figures/bench_sweep.py",
                 "figures/probe_memory.py"):
+        assert f"src/repro_torch/{mod}" in paths
+
+
+def test_source_rule_covers_the_moe_and_training_slice():
+    paths = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for mod in ("models/moe.py", "data/tokens.py", "training/optimizer.py",
+                "training/compression.py", "training/checkpoint.py",
+                "training/trainer.py", "training/train_loop.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{mod}" in paths
 
 
@@ -194,6 +207,19 @@ def test_lm_entry_points_raise_without_a_card():
         serve.build("stablelm-1.6b", smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_arrays({"layers": {}}, cfg)
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import TrainConfig
+    from repro_torch.training.trainer import RunConfig, Trainer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build("phi3.5-moe-42b-a6.6b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_at(DataConfig(vocab=8, seq_len=4, global_batch=1), 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainConfig(), DataConfig(vocab=8, seq_len=4,
+                                               global_batch=1), RunConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "phi3.5-moe-42b-a6.6b", "--smoke"])
 
 
 def test_explicit_cpu_runs():

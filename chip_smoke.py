@@ -150,8 +150,8 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    ``MOE_CHECK_LAYERS`` = 2 layers: every MoE call's top-2 expert choices
    equal between the kernel and the plain path (the smallest router
    margin printed), then phase 5's logits check;
-16. training: (a) the ``FlashAttention`` and ``GLAChunk`` autograd
-   Functions on the card against autograd of their plain versions in f32
+16. training: (a) the ``flash_attention`` and ``gla_chunk`` kernel ops'
+   autograd on the card against autograd of their plain versions in f32
    (GQA, windows, a softcap and a sink; chunks 16 and 64), outputs and
    gradients within phase 4's and phase 6's f32 bounds; (b)
    ``make_train_step`` on phi3.5-MoE at full width, 2 layers (2.86 B
@@ -165,7 +165,27 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    1e-4; (d) the ``Trainer`` at smoke size on the card, checkpoints every 2
    steps, SIGTERM after step 3 (its preemption flag), resumed to step 6,
    the restored state bitwise the saved one (checkpoints stay at smoke
-   size: a full-width one would be ~40 GB).
+   size: a full-width one would be ~40 GB);
+17. the sharding layer: (a) started right after the build and run on the
+   CPU beside phases 1-16 (two subprocesses at a time, no card visible):
+   ``repro_torch.launch.dryrun`` of ``stablelm-1.6b`` at train_4k,
+   prefill_32k and decode_32k on the single production mesh (16 x 16, a
+   fake world of 256 ranks) and on one device at ``CELL_BATCH`` (1 x 1);
+   each record's per-device peak, flops, wire bytes by kind and its
+   roofline row printed; (b) the same three cells through
+   ``launch.cells.input_specs`` on ``make_local_mesh()`` as DTensors over a
+   one-rank NCCL ``DeviceMesh``, from a seed at full width, cut only in
+   batch (``CELL_BATCH``: train 4 x 4,096 tokens for ``CELL_TRAIN_STEPS``
+   steps, ``flash_attention`` twice a layer a step; a 32,768-token prefill,
+   ``flash_attention`` once a layer; decode at batch 8 over a 32,768-slot
+   cache (51.5 GB) for ``CELL_DECODE_STEPS`` steps, ``decode_attention``
+   once a layer a step), each against the same steps on plain tensors bit
+   for bit, and the 32k prefill's kernel route against the q-chunked plain
+   route in f32 at 2 layers (last-token logits within 1e-3 of max
+   |logit|); measured peak memory, step time and tokens/s printed beside
+   the local dry run's prediction and its roofline bound; (c) the custom
+   op's host cost a call over the kernel wrapper's at phase 5's decode
+   shape.
 
 Depth cuts for the 1,200 s limit: the replays of phases 2-3 and 9-14
 are host-bound, and with phases 15-16 added the script took 1020.5 s on
@@ -177,8 +197,18 @@ runs at half its earlier depth: ``PAPER_REQUESTS`` 30,000 -> 10,000,
 10,000, ``SLOT_PREFIX`` 5,000 -> 2,500, ``HIER_REQUESTS`` 2,500 ->
 1,250, ``SERVE_REQUESTS`` 20,000 -> 10,000, and ``FABRIC_REQUESTS`` /
 ``FABRIC_MULTI_REQUESTS`` / ``FABRIC_HIER_REQUESTS`` 5,000 / 2,500 /
-2,000 -> 2,500 / 1,250 / 1,000.  The shapes (object universes, key
-spaces, tables, lanes, models) are unchanged.
+2,000 -> 2,500 / 1,250 / 1,000.  With phase 17 added the script took
+688.6 s in one run and 924.0 s in a second run of the same code (the
+host-bound phases 35-45% slower on that machine), so every replay
+was halved again: ``PAPER_REQUESTS`` 10,000 -> 5,000,
+``DEPLOY_REQUESTS`` 10,000 -> 5,000, ``FIG2_GRID_REQUESTS`` 5,000 ->
+2,500, ``GRID_REQUESTS`` 2,500 -> 1,250, ``STREAM_REQUESTS`` 10,000 ->
+5,000, ``HIER_REQUESTS`` 1,250 -> 625, ``SERVE_REQUESTS`` 10,000 ->
+5,000 and the three fabric depths 2,500 / 1,250 / 1,000 -> 1,250 / 625
+/ 500 (``SLOT_PREFIX`` stays 2,500).  The eq.-17 bands of phases 2 and
+9(a) hold at the new depths (13.534% and 6.670% on the CPU through the
+plain versions).  The shapes (object universes, key spaces, tables,
+lanes, models) are unchanged.
 
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
@@ -210,14 +240,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
-PAPER_REQUESTS = 10_000       # phase 2's fig2 workload, cut from 30,000
-DEPLOY_REQUESTS = 10_000      # phase 3's replay, cut from 20,000
-GRID_REQUESTS = 2_500         # phase 9b's replay, cut from 5,000
-FIG2_GRID_REQUESTS = 5_000    # phases 9a-10's fig2, cut from 10,000
-STREAM_REQUESTS = 10_000      # phases 10-11's stream, cut from 20,000
+PAPER_REQUESTS = 5_000        # phase 2's fig2 workload, cut from 30,000
+DEPLOY_REQUESTS = 5_000       # phase 3's replay, cut from 20,000
+GRID_REQUESTS = 1_250         # phase 9b's replay, cut from 5,000
+FIG2_GRID_REQUESTS = 2_500    # phases 9a-10's fig2, cut from 10,000
+STREAM_REQUESTS = 5_000       # phases 10-11's stream, cut from 20,000
 N_KEYS = 200_000              # fig_realworld's key space
 SLOT_PREFIX = 2_500           # phase 11's seed and reclaim runs, from 5,000
-HIER_REQUESTS = 1_250         # phase 12's hierarchies, cut from 2,500
+HIER_REQUESTS = 625           # phase 12's hierarchies, cut from 2,500
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 8                # phase 15: 8 of 32 layers (~84 GB in all)
 MOE_CHECK_LAYERS = 2          # phase 15's f32 check, phase 16(b)'s model
@@ -836,7 +866,7 @@ def phase_attention() -> dict:
             f"{sms} SMs")
     return {r["name"]: kernel_entry(r, max(worst[(r["name"], d)][0]
                                            for d in dts))
-            for r in rows if r["shape"].startswith("StableLM")}
+            for r in rows if r["shape"].startswith("StableLM:")}
 
 
 def to_f32(t):
@@ -1605,7 +1635,7 @@ def phase_hier(launches: dict) -> None:
 
 
 # --- phase 13: the serving engine --------------------------------------------
-SERVE_REQUESTS = 10_000       # phase 13(b)'s flash crowd, cut from 20,000
+SERVE_REQUESTS = 5_000        # phase 13(b)'s flash crowd, cut from 20,000
 SERVE_OBJECTS = 1 << 18       # phase 13(b)'s prefix table
 
 
@@ -1750,9 +1780,9 @@ def phase_serving(launches: dict) -> None:
 
 
 # --- phase 14: the sweep fabric on the card ----------------------------------
-FABRIC_REQUESTS = 2_500       # phase 14(a)'s grid, cut from 5,000
-FABRIC_MULTI_REQUESTS = 1_250  # 14(b)'s, cut from 2,500
-FABRIC_HIER_REQUESTS = 1_000  # phase 14(c)'s fig6 route, cut from 2,000
+FABRIC_REQUESTS = 1_250       # phase 14(a)'s grid, cut from 5,000
+FABRIC_MULTI_REQUESTS = 625   # 14(b)'s, cut from 2,500
+FABRIC_HIER_REQUESTS = 500   # phase 14(c)'s fig6 route, cut from 2,000
 
 
 def fabric_pair(label: str, fn, needs, launches: dict, arrays):
@@ -1977,11 +2007,10 @@ def phase_moe_serve(launches: dict) -> None:
 
 
 def phase_train_grads() -> None:
-    """16(a): the FlashAttention and GLAChunk autograd Functions on the card
-    (f32) against autograd of their plain versions on the same inputs."""
+    """16(a): the attention and GLA kernel ops' autograd on the card (f32)
+    against autograd of their plain versions on the same inputs."""
     import torch
-    from repro_torch.kernels.flash_attention import FlashAttention
-    from repro_torch.kernels.gla_chunk import GLAChunk
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref, gla_chunk_plain
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -2002,7 +2031,7 @@ def phase_train_grads() -> None:
         ins = [rnd(b, s, n, dh).requires_grad_() for n in (h, kv, kv)]
         pos = torch.arange(s, dtype=torch.int32, device="cuda")
         ws = [rnd(b, s, h, dh)]
-        o1, g1 = grads(lambda *a: FlashAttention.apply(
+        o1, g1 = grads(lambda *a: ops.flash_attention(
             *a, pos, pos, window, softcap, sink), ins, ws)
         o2, g2 = grads(lambda *a: flash_attention_ref(
             *a, pos, pos, window=window, softcap=softcap, sink=sink),
@@ -2010,11 +2039,11 @@ def phase_train_grads() -> None:
         err = max(float((x - y).detach().abs().max()) for x, y in
                   zip((*o1, *g1), (*o2, *g2)))
         worst = max(worst, err)
-        log(f"phase 16(a): FlashAttention H {h} / KV {kv}, window {window}, "
+        log(f"phase 16(a): flash_attention H {h} / KV {kv}, window {window}, "
             f"softcap {softcap}, sink {sink}: output and dq, dk, dv against "
             f"autograd of the plain version, max |diff| {err:.3e}")
         if not err <= 1e-5:
-            raise AssertionError(f"FlashAttention's output or gradients "
+            raise AssertionError(f"flash_attention's output or gradients "
                                  f"differ by {err} > 1e-5")
     for chunk in (16, 64):
         b, s, h, dk, dv = 2, 128, 2, 64, 64
@@ -2024,8 +2053,8 @@ def phase_train_grads() -> None:
                torch.nn.functional.logsigmoid(rnd(b, s, h)).requires_grad_(),
                (rnd(b, s, h) * 0.5).requires_grad_()]
         ws = [rnd(b, s, h, dv), rnd(b, h, dk, dv), rnd(b, h, dk)]
-        o1, g1 = grads(lambda *a: GLAChunk.apply(*a, None, None, chunk,
-                                                 True), ins, ws)
+        o1, g1 = grads(lambda *a: ops.gla_chunk(*a, None, None, chunk,
+                                                True), ins, ws)
 
         def plain(*a):
             y, (st, n) = gla_chunk_plain(*a, chunk=chunk)
@@ -2033,11 +2062,11 @@ def phase_train_grads() -> None:
         o2, g2 = grads(plain, ins, ws)
         err = max(within(x.detach(), y.detach(), False)
                   for x, y in zip((*o1, *g1), (*o2, *g2)))
-        log(f"phase 16(a): GLAChunk chunk {chunk}: y, S, n and the five "
+        log(f"phase 16(a): gla_chunk chunk {chunk}: y, S, n and the five "
             f"gradients against autograd of the plain version, max |diff| "
             f"/ (1e-4 + 1e-3 |want|) = {err:.3e}")
         if not err <= 1.0:
-            raise AssertionError(f"GLAChunk differs from its plain version "
+            raise AssertionError(f"gla_chunk differs from its plain version "
                                  f"({err} of the bound)")
     log(f"phase 16(a): passed (attention max |diff| {worst:.3e})")
 
@@ -2205,6 +2234,427 @@ def phase_train(launches: dict) -> None:
     phase_trainer()
 
 
+# --- phase 17: StableLM's cells through the sharding layer ------------------
+CELL_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# one device's batch of each cell: train 4 x 4,096 tokens, a 32k prefill of
+# one sequence, and decode_32k's 128 over the 16-wide data axis
+CELL_BATCH = {"train_4k": 4, "prefill_32k": 1, "decode_32k": 8}
+CELL_TRAIN_STEPS = 4          # 17(b): a warm-up step and 3 timed ones
+CELL_DECODE_STEPS = 3
+
+
+class DryRuns:
+    """17(a), started right after the build: ``repro_torch.launch.dryrun``
+    of ``SERVE_ARCH`` at each of ``CELL_SHAPES`` on the single production
+    mesh (a fake world of 256 ranks) and on one device at ``CELL_BATCH``
+    (a 1x1 mesh), one subprocess a cell, two at a time, on the CPU alone
+    (no card visible), while phases 1-16 run."""
+
+    def __init__(self):
+        import concurrent.futures
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        self.jobs = []
+        for shape in CELL_SHAPES:
+            for mesh in ("single", "local"):
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", SERVE_ARCH, "--shape", shape, "--mesh",
+                       mesh, "--out-dir", self.dir]
+                if mesh == "local":
+                    cmd += ["--global-batch", str(CELL_BATCH[shape])]
+                self.jobs.append((shape, mesh, cmd))
+        import threading
+        self.procs = []
+        self.lock, self.stopped = threading.Lock(), False
+        self.pool = concurrent.futures.ThreadPoolExecutor(2)
+        self.futures = [self.pool.submit(self._run, cmd, env)
+                        for _, _, cmd in self.jobs]
+
+    def _run(self, cmd, env):
+        with self.lock:
+            if self.stopped:
+                return -1, "stopped"
+            p = subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            self.procs.append(p)
+        out, _ = p.communicate(timeout=900)
+        return p.returncode, out
+
+    def records(self) -> dict:
+        """{(shape, mesh): record}; raises unless every cell is ``ok``."""
+        recs = {}
+        for (shape, mesh, _), fut in zip(self.jobs, self.futures):
+            rc, out = fut.result()
+            path = os.path.join(self.dir, f"{SERVE_ARCH}@{shape}@{mesh}.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            if rc or not rec.get("ok"):
+                raise AssertionError(f"the dry run of {shape}@{mesh} failed "
+                                     f"(exit {rc}): {out[-2000:]}")
+            recs[(shape, mesh)] = rec
+        return recs
+
+    def stop(self):
+        import shutil
+        with self.lock:
+            self.stopped = True
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cell_train(cfg, dmesh, launches: dict) -> dict:
+    """train_4k at ``CELL_BATCH`` sequences: the cell's step on DTensors
+    from a seed, then ``make_train_step`` on plain tensors from the same
+    seed, losses and final parameters bit for bit."""
+    import torch
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cells import input_specs, materialize
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import (OptConfig, init_opt,
+                                                tree_leaves)
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    b = CELL_BATCH["train_4k"]
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
+                                     total_steps=CELL_TRAIN_STEPS))
+    cell = input_specs(cfg, "train_4k", dmesh, tcfg, global_batch=b)
+
+    def values():
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        params = tf.init_params(gen, cfg)
+        batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=4097,
+                                    global_batch=b), 0)
+        return params, init_opt(params), {k: v.to(torch.int32)
+                                          for k, v in batch.items()}
+
+    def run(step, args):
+        losses, secs = [], []
+        for _ in range(CELL_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(*args)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(local(m["loss"])))
+        return params, losses, secs
+
+    out = {}
+    for label in ("dtensor", "plain"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        vals = values()
+        if label == "dtensor":
+            args, step = materialize(cell, vals), cell.fn
+            reset_launch_counts()
+        else:
+            args, step = vals, make_train_step(cfg, tcfg)
+        del vals
+        params, losses, secs = run(step, args)
+        if label == "dtensor":
+            lc = launch_counts()
+            want = cfg.n_layers * 2 * CELL_TRAIN_STEPS
+            if lc["flash_attention"] != want or any(
+                    v for k, v in lc.items() if k != "flash_attention"):
+                raise AssertionError(f"17(b) train_4k launched {lc}, not "
+                                     f"flash_attention {want} times")
+            add_launches(launches, lc)
+            final = [local(x).cpu() for x in tree_leaves(params)]
+        else:
+            same = all(torch.equal(local(x).cpu(), y)
+                       for x, y in zip(tree_leaves(params), final))
+        out[label] = dict(losses=losses, secs=secs,
+                          peak=torch.cuda.max_memory_allocated())
+        del args, params
+    d, p = out["dtensor"], out["plain"]
+    warm = statistics.mean(d["secs"][1:])
+    log(f"phase 17(b): train_4k, {b} x 4096 tokens, {CELL_TRAIN_STEPS} "
+        f"steps: DTensor losses {[round(x, 4) for x in d['losses']]}; "
+        f"steps 2-{CELL_TRAIN_STEPS} {warm:.3f} s each "
+        f"({b * 4096 / warm:.1f} train tokens/s; plain tensors "
+        f"{statistics.mean(p['secs'][1:]):.3f} s), peak memory "
+        f"{d['peak'] / 2**30:.2f} GiB (plain {p['peak'] / 2**30:.2f} GiB); "
+        f"flash_attention {cfg.n_layers * 2} launches a step")
+    if d["losses"] != p["losses"] or not same:
+        raise AssertionError(f"the DTensor train steps differ from the "
+                             f"plain ones: losses {d['losses']} vs "
+                             f"{p['losses']}, parameters equal: {same}")
+    if not d["losses"][-1] < d["losses"][0]:
+        raise AssertionError(f"the loss did not fall: {d['losses']}")
+    return dict(s=warm, tokens_s=b * 4096 / warm, peak=d["peak"])
+
+
+def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
+    """prefill_32k at batch 1 on DTensors against the plain prefill on a
+    fresh cache: last-token logits and the whole cache bit for bit."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cells import input_specs, materialize
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import make_serve_steps
+    cell = input_specs(cfg, "prefill_32k", dmesh, global_batch=1)
+    s = toks.shape[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = tf.init_cache(cfg, 1, s + 1)
+    args = materialize(cell, (params, cache, {"tokens": toks}))
+    cell.fn(*args)                                      # warm-up
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = cell.fn(*args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    lc = launch_counts()
+    if lc["flash_attention"] != cfg.n_layers or any(
+            v for k, v in lc.items() if k != "flash_attention"):
+        raise AssertionError(f"17(b) prefill_32k launched {lc}")
+    add_launches(launches, lc)
+    peak = torch.cuda.max_memory_allocated()
+    prefill, _ = make_serve_steps(cfg)
+    cache2 = tf.init_cache(cfg, 1, s + 1)
+    want, _ = prefill(params, cache2, {"tokens": toks})
+    same = torch.equal(local(logits), want) and all(
+        torch.equal(a["attn"][k], b["attn"][k]) for a, b in zip(cache, cache2)
+        for k in ("k", "v", "kpos"))
+    log(f"phase 17(b): prefill_32k, 1 x {s} tokens: {sec:.3f} s "
+        f"({s / sec:.1f} tok/s), peak memory {peak / 2**30:.2f} GiB, "
+        f"flash_attention {lc['flash_attention']} launches; DTensor == plain "
+        f"(logits and cache): {same}")
+    if not same:
+        raise AssertionError("the DTensor prefill differs from the plain one")
+    return dict(s=sec, tokens_s=s / sec, peak=peak)
+
+
+def cell_decode(cfg, dmesh, params, launches: dict) -> dict:
+    """decode_32k at ``CELL_BATCH`` rows over a 32,768-slot cache filled
+    from a seed but for its last ``CELL_DECODE_STEPS`` slots: those steps on
+    DTensors (a warm-up pass, then a timed one), then on plain tensors from
+    the same cache, logits and written slots bit for bit."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cells import input_specs, materialize
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import make_serve_steps
+    b, n = CELL_BATCH["decode_32k"], CELL_DECODE_STEPS
+    cell = input_specs(cfg, "decode_32k", dmesh, global_batch=b)
+    sc = 32768
+    first = sc - n
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = tf.init_cache(cfg, b, sc)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    for c in cache:
+        for k in ("k", "v"):
+            c["attn"][k][:, :first].normal_(generator=g)
+        c["attn"]["kpos"][:first] = torch.arange(first, dtype=torch.int32,
+                                                 device="cuda")
+    toks = torch.randint(0, cfg.vocab, (n, b, 1), generator=g,
+                         device="cuda", dtype=torch.int32)
+    pos = [torch.tensor(first + i, dtype=torch.int32, device="cuda")
+           for i in range(n)]
+
+    def restore():
+        for c in cache:
+            c["attn"]["k"][:, first:] = 0
+            c["attn"]["v"][:, first:] = 0
+            c["attn"]["kpos"][first:] = -1
+
+    def dtensor_pass():
+        out = []
+        for i in range(n):
+            args = materialize(cell, (params, cache, toks[i], pos[i]))
+            out.append(local(cell.fn(*args)[0]))
+        return out
+
+    dtensor_pass()
+    restore()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dtensor_pass()
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / n
+    lc = launch_counts()
+    if lc["decode_attention"] != cfg.n_layers * n or any(
+            v for k, v in lc.items() if k != "decode_attention"):
+        raise AssertionError(f"17(b) decode_32k launched {lc}")
+    add_launches(launches, lc)
+    peak = torch.cuda.max_memory_allocated()
+    written = [(c["attn"]["k"][:, first:].clone(),
+                c["attn"]["v"][:, first:].clone()) for c in cache]
+    restore()
+    _, decode = make_serve_steps(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [decode(params, cache, tokens=toks[i], pos0=pos[i])[0]
+            for i in range(n)]
+    torch.cuda.synchronize()
+    plain_sec = (time.perf_counter() - t0) / n
+    same = all(torch.equal(a, w) for a, w in zip(got, want)) and all(
+        torch.equal(c["attn"]["k"][:, first:], k) and
+        torch.equal(c["attn"]["v"][:, first:], v)
+        for c, (k, v) in zip(cache, written))
+    cache_gb = sum(c["attn"][k].numel() * c["attn"][k].element_size()
+                   for c in cache for k in ("k", "v")) / 1e9
+    log(f"phase 17(b): decode_32k, batch {b} over {sc} slots "
+        f"({cache_gb:.1f} GB of cache): {sec * 1e3:.2f} ms a step "
+        f"({b / sec:.1f} tok/s; plain tensors {plain_sec * 1e3:.2f} ms), "
+        f"peak memory {peak / 2**30:.2f} GiB, decode_attention "
+        f"{cfg.n_layers} launches a step; DTensor == plain "
+        f"(logits and written slots): {same}")
+    if not same:
+        raise AssertionError("the DTensor decode differs from the plain one")
+    del cache, written
+    return dict(s=sec, tokens_s=b / sec, peak=peak)
+
+
+def check_prefill_32k_f32(cfg, toks) -> None:
+    """The kernel route against the q-chunked plain route at 32k on the
+    card: f32, 2 layers, last-token logits within 1e-3 of max |logit|."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(19),
+                            c32)
+    outs = {}
+    with torch.no_grad():
+        for mode in (True, "ref"):
+            logits, _, _ = tf.forward(params, dataclasses.replace(
+                c32, use_kernel=mode), tokens=toks, mode="prefill")
+            outs[mode] = logits[0, -1]
+    rel = float((outs[True] - outs["ref"]).abs().max()
+                / outs["ref"].abs().max())
+    log(f"phase 17(b): prefill_32k f32 at 2 layers, kernel vs q-chunked "
+        f"plain route: last-token logits max |diff| / max |logit| = "
+        f"{rel:.3e}")
+    if not rel <= 1e-3 or not bool(torch.isfinite(outs[True]).all()):
+        raise AssertionError(f"the 32k kernel route differs from the plain "
+                             f"route by {rel} of max |logit|")
+
+
+def op_dispatch_cost() -> None:
+    """The custom op's host cost over the wrapper's on phase 5's decode
+    shape (StableLM, one token over 2,048 slots): host time of 2,000 calls
+    each, ending in a sync."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = rnd(1, 1, 32, 64), rnd(1, 2048, 32, 64), rnd(1, 2048, 32, 64)
+    qp = torch.tensor([2047], dtype=torch.int32, device="cuda")
+    kp = torch.arange(2048, dtype=torch.int32, device="cuda")
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    res = {}
+    for turn in ("wrapper", "op", "op", "wrapper"):
+        fn = ((lambda: decode_attention(q, k, v, qp, kp)) if turn ==
+              "wrapper" else (lambda: ops.decode_attention(q, k, v, qp, kp,
+                                                           0, 0.0, 0)))
+        res.setdefault(turn, []).append(host_us(fn))
+    w, o = min(res["wrapper"]), min(res["op"])
+    log(f"phase 17(c): decode_attention at phase 5's shape, host time a "
+        f"call: wrapper {w:.2f} us, custom op {o:.2f} us; the op adds "
+        f"{o - w:.2f} us a call, {(o - w) * 24 / 1e3:.3f} ms a token over "
+        f"24 layers")
+
+
+def phase_cells(launches: dict, dry: DryRuns) -> None:
+    """17: (b) the three cells through ``input_specs`` on the local mesh
+    as DTensors over a one-rank NCCL ``DeviceMesh``, each against the same
+    step on plain tensors; the 32k prefill's f32 check; (c) the custom
+    op's dispatch cost; then (a)'s records beside (b)'s measurements."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    from repro_torch.models import transformer as tf
+    cfg = registry.get(SERVE_ARCH)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        dmesh = device_mesh(make_local_mesh(), "cuda")
+        log(f"phase 17(b): {cfg.name} at full width ({cfg.n_layers} layers, "
+            f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, vocab "
+            f"{cfg.vocab}) on {dmesh}")
+        meas = {"train_4k": cell_train(cfg, dmesh, launches)}
+        torch.cuda.empty_cache()
+        params = tf.init_params(torch.Generator(device="cuda").manual_seed(
+            17), cfg)
+        toks = torch.randint(0, cfg.vocab, (1, 32768), device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(21),
+                             dtype=torch.int32)
+        meas["prefill_32k"] = cell_prefill(cfg, dmesh, params, toks,
+                                           launches)
+        meas["decode_32k"] = cell_decode(cfg, dmesh, params, launches)
+        del params
+        torch.cuda.empty_cache()
+        check_prefill_32k_f32(cfg, toks)
+        op_dispatch_cost()
+    finally:
+        dist.destroy_process_group()
+    recs = dry.records()
+    for shape in CELL_SHAPES:
+        rec = recs[(shape, "single")]
+        row = roofline.analyze(rec)
+        wire = {k: round(v / 2**20, 1) for k, v in
+                rec["collectives"]["wire_bytes"].items()}
+        log(f"phase 17(a): dry run {SERVE_ARCH}@{shape}@single (256 fake "
+            f"ranks, {rec['run_s']} s): per-device peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, arguments "
+            f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, flops "
+            f"{rec['cost']['flops']:.4e}, bytes {rec['cost']['bytes']:.4e}, "
+            f"wire MiB {wire}, collectives {rec['collectives']['counts']}; "
+            f"roofline (H100 data sheet, predicted): compute "
+            f"{row['t_compute_ms']:.2f} ms, memory {row['t_memory_ms']:.2f} "
+            f"ms, collective {row['t_collective_ms']:.2f} ms, "
+            f"{row['bottleneck']}-bound, useful {row['useful_ratio']:.3f}, "
+            f"roofline {row['roofline_frac']:.1%}")
+    for shape in CELL_SHAPES:
+        rec, m = recs[(shape, "local")], meas[shape]
+        bound = max(rec["cost"]["flops"] / roofline.PEAK_FLOPS,
+                    rec["cost"]["bytes"] / roofline.HBM_BW)
+        log(f"phase 17: {shape} on one card at batch {CELL_BATCH[shape]}: "
+            f"measured {m['s'] * 1e3:.2f} ms a step, {m['tokens_s']:.1f} "
+            f"tokens/s, peak {m['peak'] / 2**30:.2f} GiB; the dry run's "
+            f"local cell predicts peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{rec['cost']['flops']:.4e} flops, "
+            f"{rec['cost']['bytes']:.4e} bytes, a roofline bound of "
+            f"{bound * 1e3:.2f} ms ({bound / m['s']:.1%} of the measured "
+            f"step)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=DEPLOY_REQUESTS,
@@ -2223,6 +2673,15 @@ def main() -> int:
     libs = _build.build_all()
     log(f"phase 0: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
+    dry = DryRuns()
+    try:
+        return run_phases(args, t0, dry)
+    finally:
+        dry.stop()
+
+
+def run_phases(args, t0, dry) -> int:
+    import torch
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -2252,8 +2711,9 @@ def main() -> int:
     timed("14", phase_fabric, launches)
     timed("15", phase_moe_serve, launches)
     timed("16", phase_train, launches)
+    timed("17", phase_cells, launches, dry)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3, 5 and 7-16: "
+    log(f"launches over the main-path runs of phases 2-3, 5 and 7-17: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

@@ -6,8 +6,11 @@ state.  The token stream is a Zipf-weighted order-1 Markov chain over the
 vocab: ``base`` ids are drawn from the Zipf law, then
 :func:`markov_tokens` mixes neighbours as the reference does.  The port
 cannot regenerate ``jax.random.categorical``, so ``base`` comes from a
-``torch.Generator`` on the batch's device seeded from ``(seed, step)``
-(:func:`step_seed`); the law and the mixing are the reference's.
+CPU ``torch.Generator`` seeded from ``(seed, step)`` (:func:`step_seed`)
+and the batch is then moved to its device: ``torch.multinomial`` on the
+card drew other tokens from the same seed in another process, which
+would make a resumed run read other batches.  The law and the mixing are
+the reference's.
 """
 from __future__ import annotations
 
@@ -56,17 +59,16 @@ def batch_at(cfg: DataConfig, step: int, *, frontend: str = "none",
     reference, whose shift leaves ``seq_len - 1`` positions."""
     dev = resolve_device(device)
     b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab
-    g = torch.Generator(device=dev).manual_seed(step_seed(cfg.seed, step))
-    probs = torch.softmax(_zipf_logits(v, cfg.zipf_alpha, dev), dim=0)
+    g = torch.Generator().manual_seed(step_seed(cfg.seed, step))
+    probs = torch.softmax(_zipf_logits(v, cfg.zipf_alpha), dim=0)
     base = torch.multinomial(probs, b * (s + 1), replacement=True,
                              generator=g).reshape(b, s + 1)
     tokens, labels = markov_tokens(base, v, cfg.markov_jump)
-    out = {"labels": labels}
+    out = {"labels": labels.to(dev)}
     if frontend == "none":
-        out["tokens"] = tokens
+        out["tokens"] = tokens.to(dev)
     else:
-        ge = torch.Generator(device=dev).manual_seed(
-            step_seed(cfg.seed, step, 1))
-        out["embeds"] = torch.randn((b, s - 1, d_model), generator=ge,
-                                    device=dev) * 0.02
+        ge = torch.Generator().manual_seed(step_seed(cfg.seed, step, 1))
+        out["embeds"] = (torch.randn((b, s - 1, d_model), generator=ge)
+                         * 0.02).to(dev)
     return out

@@ -238,6 +238,20 @@ def attention_inputs(dev, small: bool) -> dict:
                                    for _ in range(n_caches)],
                 ipos([s - 1]), pos, {}),
         what=f"B=1, S={s}, {h} heads of {dh}, causal")}
+    # StableLM-2-1.6B's 32k cells: prefill_32k at batch 1 and decode_32k at
+    # its batch on one device of the 16-wide data axis (8), a full cache
+    s, h, dh, b_dec, n_caches = (512, 4, 64, 2, 2) if small else (
+        32768, 32, 64, 8, 2)
+    pos = ipos(range(s))
+    out["StableLM 32k"] = dict(
+        prefill=(rnd(1, s, h, dh), rnd(1, s, h, dh), rnd(1, s, h, dh),
+                 pos, pos, {}),
+        decode=(rnd(b_dec, 1, h, dh), [(rnd(b_dec, s, h, dh),
+                                        rnd(b_dec, s, h, dh))
+                                       for _ in range(n_caches)],
+                ipos([s - 1]), pos, {}),
+        what=f"B=1 prefill / B={b_dec} decode, S={s}, {h} heads of {dh}, "
+             f"causal")
     # Hymba-1.5B: prefill over meta + prompt tokens, decode over a wrapped
     # ring (sink slots in place, ring slots holding positions out of
     # order) with empty slots
@@ -264,9 +278,11 @@ def attention_inputs(dev, small: bool) -> dict:
 
 
 def time_attention(dev) -> list[dict]:
-    """``flash_attention`` and ``decode_attention`` at StableLM's and
-    Hymba's shapes (cut on the CPU) beside
-    ``F.scaled_dot_product_attention``."""
+    """``flash_attention`` and ``decode_attention`` at StableLM's (2048
+    and its 32k cells) and Hymba's shapes (cut on the CPU) beside
+    ``F.scaled_dot_product_attention``; the plain prefill is the q-chunked
+    form from 8192 positions on (the whole (Sq, Sk) logits of a 32k
+    prefill would not fit)."""
     import torch.nn.functional as F
     from ..kernels import ref
     from ..kernels.decode_attention import decode_attention
@@ -296,8 +312,8 @@ def time_attention(dev) -> list[dict]:
             "flash_attention", f"{cell}: {inp['what']}", dev,
             _kernel_ms(dev, lambda: flash_attention(q, k, v, qp, kp, **kw),
                        reps or 20),
-            time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp, **kw),
-                    reps or 5, dev),
+            time_ms(lambda: ref.flash_attention_chunked_ref(
+                q, k, v, qp, kp, **kw), reps or 5, dev),
             bnd, by, how + f"; split-P work {split_p * 1e3:.2f} us",
             "F.scaled_dot_product_attention",
             time_ms(lambda: F.scaled_dot_product_attention(

@@ -14,9 +14,9 @@ CUDA-core kernel, with both products in f32.
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version in :mod:`repro_torch.kernels.ref`.
 
-:class:`FlashAttention` makes the wrapper differentiable: its forward is
-the wrapper (the kernel on the card), its backward recomputes the plain
-version under autograd and differentiates it.  That is what the JAX
+:func:`plain_grads` is the kernel's gradient: autograd of the plain
+version, recomputed (the custom op ``repro_torch::flash_attention`` of
+:mod:`repro_torch.kernels.ops` registers it).  That is what the JAX
 trainer does (its Pallas kernels define no backward rule, so it trains
 through its XLA route), so no backward kernel exists.
 """
@@ -104,27 +104,16 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
     return out
 
 
-class FlashAttention(torch.autograd.Function):
-    """``FlashAttention.apply(q, k, v, q_pos, k_pos, window, softcap,
-    sink)``: :func:`flash_attention` forward; gradients of q, k, v from
-    autograd of :func:`repro_torch.kernels.ref.flash_attention_ref` on the
-    same inputs, recomputed in the backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, window, softcap, sink):
-        ctx.save_for_backward(q, k, v, q_pos, k_pos)
-        ctx.opts = dict(window=window, softcap=softcap, sink=sink)
-        return flash_attention(q, k, v, q_pos, k_pos, **ctx.opts)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, q_pos, k_pos = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip((q, k, v),
-                                                                 need)]
-            out = flash_attention_ref(*ins, q_pos, k_pos, **ctx.opts)
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wrt, grad_out))
-        grads = [next(got) if n else None for n in need]
-        return (*grads, None, None, None, None, None)
+def plain_grads(q, k, v, q_pos, k_pos, grad_out, need, *, window, softcap,
+                sink):
+    """Gradients of q, k, v (None where ``need`` is false) from autograd
+    of :func:`repro_torch.kernels.ref.flash_attention_ref`, recomputed on
+    the same inputs."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip((q, k, v),
+                                                             need)]
+        out = flash_attention_ref(*ins, q_pos, k_pos, window=window,
+                                  softcap=softcap, sink=sink)
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wrt, grad_out))
+    return [next(got) if n else None for n in need]

@@ -24,11 +24,11 @@ tensor it runs the plain version
 :func:`repro_torch.kernels.ref.gla_chunk_plain`.  ``launches`` counts one
 per wrapper call, whatever the route launched.
 
-:class:`GLAChunk` makes the wrapper differentiable: its forward is the
-wrapper (the kernel on the card), its backward recomputes
-:func:`repro_torch.kernels.ref.gla_chunk_plain` under autograd and
-differentiates it, as the JAX trainer trains through its XLA route (the
-Pallas kernel defines no backward rule).
+:func:`plain_grads` is the kernel's gradient: autograd of
+:func:`repro_torch.kernels.ref.gla_chunk_plain`, recomputed (the custom
+op ``repro_torch::gla_chunk`` of :mod:`repro_torch.kernels.ops` registers
+it), as the JAX trainer trains through its XLA route (the Pallas kernel
+defines no backward rule).
 """
 from __future__ import annotations
 
@@ -162,35 +162,22 @@ def gla_chunk(q, k, v, log_f, log_i, *, chunk: int = 256,
     return y, (sT, nT)
 
 
-class GLAChunk(torch.autograd.Function):
-    """``GLAChunk.apply(q, k, v, log_f, log_i, s0, n0, chunk, normalize)``
-    (``s0``, ``n0`` the initial state or None): :func:`gla_chunk`
-    forward, returning (y, S, n); gradients of every tensor input from
-    autograd of :func:`repro_torch.kernels.ref.gla_chunk_plain` on the
-    same inputs, recomputed in the backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, log_f, log_i, s0, n0, chunk, normalize):
-        ctx.save_for_backward(q, k, v, log_f, log_i, s0, n0)
-        ctx.opts = dict(chunk=chunk, normalize=normalize)
+def plain_grads(q, k, v, log_f, log_i, s0, n0, grads_out, need, *, chunk,
+                normalize):
+    """Gradients of q, k, v, log_f, log_i, s0, n0 (None where ``need`` is
+    false or the input is None) from autograd of
+    :func:`repro_torch.kernels.ref.gla_chunk_plain`, recomputed on the same
+    inputs."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip((q, k, v, log_f, log_i, s0, n0), need)]
+        q, k, v, log_f, log_i, s0, n0 = ins
         init = None if s0 is None else (s0, n0)
-        y, (sT, nT) = gla_chunk(q, k, v, log_f, log_i, init_state=init,
-                                **ctx.opts)
-        return y, sT, nT
-
-    @staticmethod
-    def backward(ctx, gy, gs, gn):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:7]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip(saved, need)]
-            q, k, v, log_f, log_i, s0, n0 = ins
-            init = None if s0 is None else (s0, n0)
-            y, (sT, nT) = gla_chunk_plain(q, k, v, log_f, log_i,
-                                          init_state=init, **ctx.opts)
-            wrt = [t for t in ins if t is not None and t.requires_grad]
-            got = iter(torch.autograd.grad((y, sT, nT), wrt, (gy, gs, gn),
-                                           allow_unused=True))
-        grads = [next(got) if n else None for n in need]
-        return (*grads, None, None)
+        y, (sT, nT) = gla_chunk_plain(q, k, v, log_f, log_i,
+                                      init_state=init, chunk=chunk,
+                                      normalize=normalize)
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad((y, sT, nT), wrt, grads_out,
+                                       allow_unused=True))
+    return [next(got) if t is not None and t.requires_grad else None
+            for t in ins]

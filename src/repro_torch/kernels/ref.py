@@ -190,6 +190,33 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+# Above this many query positions the plain route runs over q chunks, each
+# against all keys, so the (Sq, Sk) f32 logits never exist whole (the JAX
+# package's CHUNKED_Q_THRESHOLD / CHUNK_Q, models/attention.py).
+CHUNKED_Q_THRESHOLD = 8192
+CHUNK_Q = 512
+
+
+def flash_attention_chunked_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
+                                softcap: float = 0.0, sink: int = 0,
+                                threshold: int = CHUNKED_Q_THRESHOLD,
+                                chunk_q: int = CHUNK_Q):
+    """:func:`flash_attention_ref` with the JAX package's q-chunked form
+    (``_sdpa_chunked``) from ``threshold`` query positions on: each chunk
+    of ``chunk_q`` queries takes the whole f32 softmax over every key, so
+    peak logits are (B, H, chunk_q, Sk).  Below ``threshold`` it is
+    :func:`flash_attention_ref` itself."""
+    sq = q.shape[1]
+    if sq < threshold:
+        return flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                   softcap=softcap, sink=sink)
+    out = [flash_attention_ref(q[:, i:i + chunk_q], k, v,
+                               q_pos[i:i + chunk_q], k_pos, window=window,
+                               softcap=softcap, sink=sink)
+           for i in range(0, sq, chunk_q)]
+    return torch.cat(out, dim=1)
+
+
 def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
                          softcap: float = 0.0, sink: int = 0):
     """Single-token decode: q (B,1,H,dh) against k/v (B,Sk,KV,dh)."""

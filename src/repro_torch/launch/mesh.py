@@ -1,12 +1,22 @@
-"""Device meshes for the sweep fabric (:mod:`repro_torch.launch.fabric`).
+"""Device meshes: the sweep fabric's (:mod:`repro_torch.launch.fabric`)
+and the LM's production meshes.
 
 A :class:`Mesh` is an ordered tuple of ``torch.device``s with named axes;
-it builds no process group and touches no device.  Its constructors are
-functions, so importing this module never initialises CUDA.
+an :class:`AbstractMesh` only axis names and sizes.  Neither builds a
+process group or touches a device.  Their constructors are functions, so
+importing this module never initialises CUDA.
 
     make_data_mesh(n_devices=None, devices=None)   1-D ``data`` mesh
     make_local_mesh(device=None)                   one device, axes
                                                    ("data", "model")
+    make_production_mesh(multi_pod=False)          (16, 16) over ("data",
+                                                   "model") or (2, 16, 16)
+                                                   over ("pod", "data",
+                                                   "model"), abstract
+    device_mesh(mesh, device_type)                 the ``torch.distributed``
+                                                   ``DeviceMesh`` of a mesh
+                                                   over the initialised
+                                                   process group
 
 ``make_data_mesh`` takes the visible CUDA devices in index order unless
 ``devices`` pins an explicit order: the fabric assigns lane blocks in mesh
@@ -20,7 +30,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["Mesh", "make_data_mesh", "make_local_mesh"]
+__all__ = ["AbstractMesh", "Mesh", "device_mesh", "make_data_mesh",
+           "make_local_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,3 +106,58 @@ def make_local_mesh(device=None) -> Mesh:
     ``("data", "model")``."""
     from .._device import resolve_device
     return Mesh((resolve_device(device),), ("data", "model"), (1, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Named axes and their sizes, with no devices: what the sharding
+    planner (:mod:`repro_torch.sharding.specs`) reads, as JAX's abstract
+    mesh."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"axes {self.axis_names} and sizes "
+                             f"{self.axis_sizes} differ in length")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, (int(s) for s in self.axis_sizes)))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= int(s)
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: 16 x 16 = 256 devices over ("data", "model").
+    Multi-pod: 2 pods x 256 = 512 over ("pod", "data", "model")."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def device_mesh(mesh, device_type: str | None = None):
+    """The ``DeviceMesh`` of ``mesh`` (an :class:`AbstractMesh` or a
+    :class:`Mesh`) over the default process group, which must be
+    initialised with ``mesh.size`` ranks (the ``"fake"`` backend for a
+    dry run, NCCL on cards).  ``device_type`` defaults to the devices'
+    type of a :class:`Mesh` and to ``"cpu"`` for an abstract one."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialised process group")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"a mesh of {mesh.size} devices needs a world of "
+                         f"{mesh.size} ranks, not {dist.get_world_size()}")
+    if device_type is None:
+        devs = getattr(mesh, "devices", None)
+        device_type = devs[0].type if devs else "cpu"
+    return init_device_mesh(device_type, tuple(int(s) for s in
+                                               mesh.axis_sizes),
+                            mesh_dim_names=tuple(mesh.axis_names))

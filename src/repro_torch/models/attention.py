@@ -1,27 +1,32 @@
 """Attention: GQA + RoPE + causal/sliding-window masks + logit softcap, with
 a ring-buffer KV cache.
 
-The counterpart of the JAX package's ``models/attention.py``.  The port has
-one route, the JAX module's ``use_kernel=True`` branch: a query block of
-more than one position goes to the prefill kernel
-(:func:`repro_torch.kernels.flash_attention.flash_attention`), a single
-position to the decode kernel
-(:func:`repro_torch.kernels.decode_attention.decode_attention`).  Each
-wrapper launches its CUDA kernel for a tensor on the card and runs its
-plain version for a tensor on the CPU; ``use_kernel="ref"`` runs the plain
-versions on the card too (the on-card oracle of the kernel path).  When
-autograd records (grad enabled and q, k or v requiring grad), every query
-block goes through :class:`repro_torch.kernels.flash_attention.
-FlashAttention`: the prefill kernel forward and the plain version's
-gradients (the decode kernel has no backward; it serves only).  Any
-other value of ``use_kernel`` than ``True`` and ``"ref"`` raises: the JAX
-module's ``False`` (its XLA route) has no counterpart here.
+The counterpart of the JAX package's ``models/attention.py``.  The port's
+main route is the JAX module's ``use_kernel=True`` branch, through the
+custom ops of :mod:`repro_torch.kernels.ops`: a query block of more than
+one position goes to the prefill kernel (``flash_attention``), a single
+position to the decode kernel (``decode_attention``).  Each op's wrapper
+launches its CUDA kernel for a tensor on the card and runs its plain
+version for a tensor on the CPU; on DTensors the op's sharding rule runs
+it shard by shard.  When autograd records (grad enabled and q, k or v
+requiring grad), every query block goes through the prefill op, whose
+gradients are the plain version's (the decode kernel has no backward; it
+serves only).
+
+``use_kernel="ref"`` runs the plain versions on any device (the on-card
+oracle of the kernel path): from ``CHUNKED_Q_THRESHOLD`` = 8192 query
+positions on, the q-chunked form of the JAX module's ``_sdpa_chunked``
+(:func:`repro_torch.kernels.ref.flash_attention_chunked_ref`, 512 queries
+a chunk against every key), so a 32k prefill never forms its whole
+(Sq, Sk) logits.  Any other value of ``use_kernel`` than ``True`` and
+``"ref"`` raises: the JAX module's ``False`` (its XLA einsum route) has no
+counterpart here.  Under a mesh whose ``model`` axis does not divide the
+KV heads, train and prefill repeat KV to the q heads before the op, as the
+JAX module does, so the heads shard whole over ``model``; decode keeps the
+grouped form.
 
 The JAX module's ``_mask`` is :func:`repro_torch.kernels.ref.attention_keep`,
-beside the plain versions that use it.  Not ported: the JAX module's XLA
-einsum route and its q-chunked form
-``_sdpa_chunked``; they exist there to let XLA/GSPMD lower and shard the
-dry-run, which has no counterpart on one card.
+beside the plain versions that use it.
 
 The cache is updated in place (the JAX version returns a new one); the
 caller owns it, and nothing else holds the old contents.
@@ -30,10 +35,10 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import FlashAttention, flash_attention
-from ..kernels.ref import decode_attention_ref, flash_attention_ref
-from .layers import apply_rope, init_dense
+from ..kernels import ops
+from ..kernels.ref import decode_attention_ref, flash_attention_chunked_ref
+from ..sharding.activation import axis_size, constrain
+from .layers import apply_rope, init_dense, split_heads
 
 
 def init_attn(generator: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -57,17 +62,40 @@ def sdpa(q, k, v, q_pos, k_pos, *, window: int = 0, softcap: float = 0.0,
         raise ValueError(f"use_kernel must be True (the kernels) or 'ref' "
                          f"(their plain versions), not {use_kernel!r}")
     plain = use_kernel == "ref"
-    if not plain and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        # training: the prefill kernel forward, the plain version's backward
-        return FlashAttention.apply(q, k, v, q_pos, k_pos, window, softcap,
-                                    sink)
-    if q.shape[1] > 1:
-        fn = flash_attention_ref if plain else flash_attention
+    sq = q.shape[1]
+    if sq > 1 and kv != h and kv % axis_size("model"):
+        k = torch.repeat_interleave(k, h // kv, dim=2)
+        v = torch.repeat_interleave(v, h // kv, dim=2)
+    recording = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if plain:
+        fn = (flash_attention_chunked_ref if sq > 1 or recording
+              else decode_attention_ref)
+        return fn(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
+                  sink=sink)
+    op = ops.flash_attention if sq > 1 or recording else ops.decode_attention
+    return op(q, k, v, q_pos, k_pos, int(window), float(softcap), int(sink))
+
+
+def _put(buf: torch.Tensor, slots: torch.Tensor, vals: torch.Tensor):
+    """``buf[:, slots] = vals`` for a (B, Sc, KV, dh) cache tensor,
+    ``buf[slots] = vals`` for the (Sc,) positions.  A DTensor cache never
+    splits its slot dim, so each shard writes its own rows in place, with
+    ``vals`` laid out as ``buf`` first (DTensor's own indexed write has no
+    rule for this in some PyTorch releases)."""
+    if hasattr(buf, "device_mesh"):
+        if hasattr(vals, "device_mesh"):
+            vals = vals.redistribute(buf.device_mesh,
+                                     buf.placements).to_local()
+        elif not all(p.is_replicate() for p in buf.placements):
+            raise ValueError("a plain tensor written into a split cache")
+        buf = buf.to_local()
+        if hasattr(slots, "to_local"):
+            slots = slots.full_tensor()
+    if buf.dim() == 1:
+        buf[slots] = vals
     else:
-        fn = decode_attention_ref if plain else decode_attention
-    return fn(q, k, v, q_pos, k_pos, window=window, softcap=softcap,
-              sink=sink)
+        buf[:, slots] = vals
 
 
 def _slot(pos: torch.Tensor, sink: int, ring: int) -> torch.Tensor:
@@ -93,11 +121,12 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     """
     b, s, _ = x.shape
     dev = x.device
-    q = (x @ p["wq"]).reshape(b, s, n_heads, d_head)
-    k = (x @ p["wk"]).reshape(b, s, n_kv, d_head)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, d_head)
+    q = split_heads(x @ p["wq"], n_heads, d_head)
+    k = split_heads(x @ p["wk"], n_kv, d_head)
+    v = split_heads(x @ p["wv"], n_kv, d_head)
     q = apply_rope(q, pos, theta)
     k = apply_rope(k, pos, theta)
+    q = constrain(q, "act_heads")
     kw = dict(window=window, softcap=softcap, sink=sink,
               use_kernel=use_kernel)
 
@@ -117,16 +146,16 @@ def attn_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
             pos_w = pos
         slots = _slot(pos_w.long(), sink, ring)
         cdt = cache["k"].dtype
-        cache["k"][:, slots] = k.to(cdt)
-        cache["v"][:, slots] = v.to(cdt)
-        cache["kpos"][slots] = pos_w
+        _put(cache["k"], slots, k.to(cdt))
+        _put(cache["v"], slots, v.to(cdt))
+        _put(cache["kpos"], slots, pos_w)
     else:
         # Decode: write the single new token, attend over the cache.
         slots = _slot(pos.long(), sink, cache["k"].shape[1] - sink)
         cdt = cache["k"].dtype            # may be fp8 (cfg.kv_dtype='f8')
-        cache["k"][:, slots] = k.to(cdt)
-        cache["v"][:, slots] = v.to(cdt)
-        cache["kpos"][slots] = pos
+        _put(cache["k"], slots, k.to(cdt))
+        _put(cache["v"], slots, v.to(cdt))
+        _put(cache["kpos"], slots, pos)
         ka = cache["k"].to(k.dtype) if cdt != k.dtype else cache["k"]
         va = cache["v"].to(v.dtype) if cdt != v.dtype else cache["v"]
         out = sdpa(q, ka, va, pos, cache["kpos"], **kw)

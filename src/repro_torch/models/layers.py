@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.activation import constrain
+
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
@@ -32,6 +34,22 @@ def init_embed(generator: torch.Generator, vocab: int, d: int,
     w = torch.randn((vocab, d), generator=generator, device=generator.device,
                     dtype=torch.float32)
     return (w * 0.02).to(dtype)
+
+
+def split_heads(t: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
+    """(..., n * d_head) -> (..., n, d_head).  A DTensor split over its
+    last dim by a mesh dim whose size does not divide ``n`` (8 KV heads
+    over a 16-wide ``model`` axis) is gathered over that mesh dim first:
+    the split would cut heads apart."""
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        want = [Replicate() if isinstance(p, Shard) and p.dim == t.dim() - 1
+                and n % mesh.size(i) else p
+                for i, p in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(mesh, want)
+    return t.reshape(*t.shape[:-1], n, d_head)
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +91,7 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["w_up"]))
     else:
         raise ValueError(f"unknown mlp act {act!r}")
+    h = constrain(h, "act_ffn")
     return h @ p["w_down"]
 
 

@@ -13,9 +13,10 @@ kernel) and one step at a time in decode (:func:`gla_decode_step`, plain
 PyTorch, as in the JAX package).  ``use_kernel=True`` takes the kernel
 (its plain version for CPU tensors), ``"ref"`` the plain version on any
 device; the JAX module's XLA route (``use_kernel=False``) and its
-``unroll`` knob have no counterpart here.  When autograd records, the
-kernel route goes through :class:`repro_torch.kernels.gla_chunk.GLAChunk`
-(the kernel forward, the plain version's gradients).  Parameters are
+``unroll`` knob have no counterpart here.  The kernel route is the custom
+op ``torch.ops.repro_torch.gla_chunk`` (:mod:`repro_torch.kernels.ops`:
+the kernel forward, the plain version's gradients when autograd records,
+a DTensor sharding rule).  Parameters are
 plain dicts; the leaves the JAX package keeps in f32 inside a bf16 model
 (:data:`F32_LEAVES`) are f32 here too.
 """
@@ -24,9 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.gla_chunk import GLAChunk, gla_chunk
+from ..kernels import ops
 from ..kernels.ref import gla_chunk_plain
-from .layers import init_dense
+from .layers import init_dense, split_heads
 
 # Parameter leaves created in f32 whatever the model's dtype (the gate and
 # step-size projections, the SSD decay and skip, the hybrid mixing scalars,
@@ -62,17 +63,14 @@ def chunked_gla(q, k, v, log_f, log_i, *, chunk: int = 256,
                             chunk=chunk, normalize=normalize,
                             init_state=init_state, use_kernel=use_kernel)
         return y[:, :s], st
-    if use_kernel is True and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (q, k, v, log_f, log_i, *(init_state or ()))):
-        # training: the kernel forward, the plain version's backward
-        s0, n0 = init_state if init_state is not None else (None, None)
-        y, s_t, n_t = GLAChunk.apply(q, k, v, log_f, log_i, s0, n0, chunk,
-                                     normalize)
-        return y, (s_t, n_t)
-    fn = gla_chunk if use_kernel is True else gla_chunk_plain
-    return fn(q, k, v, log_f, log_i, chunk=chunk, normalize=normalize,
-              init_state=init_state)
+    if use_kernel is True:
+        # the kernel op: its forward on the card, the plain version's
+        # gradients when autograd records
+        return ops.gla_chunk_kernel_apply(q, k, v, log_f, log_i, chunk=chunk,
+                                          normalize=normalize,
+                                          init_state=init_state)
+    return gla_chunk_plain(q, k, v, log_f, log_i, chunk=chunk,
+                           normalize=normalize, init_state=init_state)
 
 
 def gla_decode_step(q, k, v, log_f, log_i, state, *, normalize: bool = True):
@@ -148,12 +146,14 @@ def mlstm_apply(p, x, *, n_heads: int, state=None, conv_tail=None,
     dh = di // n_heads
     xc, conv_tail = causal_conv(xi, p["conv"], conv_tail)
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(b, s, n_heads, dh)
-    k = (xc @ p["wk"]).reshape(b, s, n_heads, dh)
-    v = (xi @ p["wv"]).reshape(b, s, n_heads, dh)
-    gates = (xc.float() @ p["w_gates"]).reshape(b, s, n_heads, 2)
-    log_i = F.logsigmoid(gates[..., 0])
-    log_f = F.logsigmoid(gates[..., 1])
+    q = split_heads(xc @ p["wq"], n_heads, dh)
+    k = split_heads(xc @ p["wk"], n_heads, dh)
+    v = split_heads(xi @ p["wv"], n_heads, dh)
+    gates = split_heads(xc.float() @ p["w_gates"], n_heads, 2)
+    # log-sigmoid as -softplus(-x), jax.nn.log_sigmoid's own form (and one
+    # DTensor shards: it has no rule for the fused log_sigmoid op)
+    log_i = -F.softplus(-gates[..., 0])
+    log_f = -F.softplus(-gates[..., 1])
     if s == 1 and state is not None:
         y, state = gla_decode_step(q[:, 0], k[:, 0], v[:, 0],
                                    log_f[:, 0], log_i[:, 0], state)
@@ -195,13 +195,13 @@ def mamba_apply(p, x, *, n_heads: int, d_state: int, state=None,
     ph = d_inner // n_heads                                   # channels/head
     xc, conv_tail = causal_conv(xi, p["conv"], conv_tail)
     xc = F.silu(xc)
-    bc = (xc @ p["w_bc"]).reshape(b, s, n_heads, 2 * d_state)
+    bc = split_heads(xc @ p["w_bc"], n_heads, 2 * d_state)
     bmat, cmat = torch.chunk(bc, 2, dim=-1)                   # (B,S,H,N)
     dt = F.softplus(xc.float() @ p["w_dt"])                   # (B,S,H)
     a = -torch.exp(p["a_log"])                                # (H,)
     log_f = dt * a
     log_i = torch.log(torch.clamp(dt, min=1e-6))
-    v = xc.reshape(b, s, n_heads, ph)
+    v = split_heads(xc, n_heads, ph)
     # Note dk here = d_state, dv = channels-per-head.
     if s == 1 and state is not None:
         y, state = gla_decode_step(cmat[:, 0], bmat[:, 0], v[:, 0],
@@ -212,8 +212,8 @@ def mamba_apply(p, x, *, n_heads: int, d_state: int, state=None,
         y, state = chunked_gla(cmat, bmat, v, log_f, log_i, chunk=chunk,
                                normalize=False, init_state=state,
                                use_kernel=use_kernel)
-    y = y.reshape(b, s, d_inner)
-    y = y + xc * torch.repeat_interleave(p["d_skip"], ph).to(xc.dtype)
+    # the skip per head (v is xc split into heads)
+    y = (y + v * p["d_skip"][:, None].to(xc.dtype)).reshape(b, s, d_inner)
     out = (y * F.silu(z)) @ p["w_out"]
     return out, (state, conv_tail)
 

@@ -19,8 +19,12 @@ Three modes share one code path:
             absolute ``pos0`` (which counts the meta tokens).
 
 Parameters are plain dicts; ``params["layers"]`` is a list of per-layer
-dicts, walked by a Python loop (the JAX model's ``lax.scan`` and sharding
-hints have no counterpart on one card).  In train mode with autograd on,
+dicts, walked by a Python loop (the JAX model's ``lax.scan`` has no
+counterpart).  :func:`abstract_params` is the tree on the ``meta`` device.
+The JAX model's sharding hints are kept: ``constrain`` at the residual
+stream and the logits (:mod:`repro_torch.sharding.activation`), the
+identity unless a launcher installs rules and the tensors are DTensors.
+In train mode with autograd on,
 ``cfg.remat == "full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` with
 ``nothing_saveable`` does; ``"dots"`` (the JAX policy that keeps the
@@ -36,8 +40,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
+from ..sharding.activation import constrain
 from .attention import attn_apply, init_attn, init_kv_cache
-from .layers import init_dense, init_embed, mlp_apply, mlp_init, rms_norm
+from .layers import (init_dense, init_embed, mlp_apply, mlp_init, rms_norm,
+                     split_heads)
 from .moe import init_moe, moe_apply
 from .ssm import (init_gla_state, init_mamba, init_mlstm, mamba_apply,
                   mlstm_apply)
@@ -90,6 +96,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
             (cfg.meta_tokens, cfg.d_model), generator=g, device=g.device)
             * 0.02).to(dt)
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of :func:`init_params` on the ``meta`` device, at
+    the same shapes and dtypes, with no allocation (the dry-run path)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..training.optimizer import tree_map
+    with FakeTensorMode():
+        fake = init_params(torch.Generator(), cfg)
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), fake)
 
 
 def n_params(params: dict) -> int:
@@ -189,6 +206,7 @@ def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
             new_cache["ssm"] = {"S": state[0], "n": state[1], "conv": tail}
     else:
         x = x + attn_out
+    x = constrain(x, "residual")
     h2 = rms_norm(x, p["ln2"])
     if cfg.family == "moe":
         mlp_out, aux = moe_apply(p["moe"], h2, top_k=cfg.top_k,
@@ -196,7 +214,7 @@ def _block(cfg: ModelConfig, p: dict, x, pos, cache: dict | None,
                                  capacity_factor=cfg.capacity_factor)
     else:
         mlp_out = mlp_apply(p["mlp"], h2, cfg.mlp_act)
-    return x + mlp_out, new_cache, aux
+    return constrain(x + mlp_out, "residual"), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +225,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
     """Returns (logits, cache, aux_loss).
 
     tokens (B,S) integer ids or embeds (B,S,d) (vlm/audio stubs), on the
-    parameters' device; decode: S == 1 and ``pos0`` is the absolute
+    parameters' device; decode: S == 1 and ``pos0`` (an int or a 0-d
+    integer tensor on that device) is the absolute
     position of the incoming token, including the meta-token offset for
     hybrid archs.  The aux loss is the f32 sum of the MoE layers'
     load-balance losses (0 for the other families).
@@ -216,18 +235,30 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
         raise ValueError(f"unknown mode {mode!r}")
     check_family(cfg)
     emb = params["embed"]
-    x = emb[tokens] if embeds is None else embeds.to(cfg.torch_dtype)
+    if embeds is None and hasattr(emb, "device_mesh"):
+        # a DTensor table is gathered whole for the lookup (its gradient is
+        # reduced back to the table's split), which DTensor shards by the
+        # tokens' batch rows
+        from torch.distributed.tensor import Replicate
+        emb = emb.redistribute(emb.device_mesh,
+                               [Replicate()] * emb.device_mesh.ndim)
+    x = (torch.nn.functional.embedding(tokens, emb) if embeds is None
+         else embeds.to(cfg.torch_dtype))
     b, s = x.shape[0], x.shape[1]
     m = cfg.meta_tokens
     if m and mode != "decode":
         meta = params["meta"].to(x.dtype).expand(b, m, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
         s = s + m
+    x = constrain(x, "residual")
 
     # a fill on the device, not a copy from the host: no stream sync
-    pos = (torch.full((1,), int(pos0), dtype=torch.int32, device=x.device)
-           if mode == "decode"
-           else torch.arange(s, dtype=torch.int32, device=x.device))
+    if mode != "decode":
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    elif isinstance(pos0, torch.Tensor):   # a 0-d tensor: no host read
+        pos = pos0.to(torch.int32).reshape(1)
+    else:
+        pos = torch.full((1,), int(pos0), dtype=torch.int32, device=x.device)
     remat = (mode == "train" and cache is None and cfg.remat == "full"
              and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -252,7 +283,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
         x = x[:, -1:]
     logits = x @ params["lm_head"]
     if cfg.out_heads > 1:
-        logits = logits.reshape(*logits.shape[:-1], cfg.out_heads, cfg.vocab)
+        logits = split_heads(logits, cfg.out_heads, cfg.vocab)
+    logits = constrain(logits, "logits")
     return logits, new_cache, aux
 
 
@@ -263,13 +295,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore: int = -100) -> torch.Tensor:
     """Mean f32 negative log-likelihood over the labels that are not
     ``ignore``; (B,S,V) logits with (B,S) labels or (B,S,K,V) with
-    (B,S,K).  The label's logit is picked by index (the JAX function's
-    one-hot contraction picks the same value)."""
+    (B,S,K).  The label's logit is a masked sum over the vocab, which
+    picks the same value as the JAX function's one-hot contraction."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
+    # logsumexp as ATen forms it (max, sum of exp, log, add), in ops that a
+    # vocab-sharded DTensor reduces shard by shard
+    mx = torch.amax(lf, dim=-1, keepdim=True)
+    mx = torch.where(torch.isinf(mx), torch.zeros_like(mx), mx)
+    lse = torch.log(torch.sum(torch.exp(lf - mx), dim=-1)) + mx[..., 0]
     valid = labels != ignore
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    picked = torch.gather(lf, -1, safe[..., None].long())[..., 0]
+    # the label's logit as a masked sum over the vocab, as the JAX
+    # function's one-hot contraction: on a vocab-sharded DTensor it reduces
+    # locally, and its gradient keeps the logits' sharding
+    hit = safe[..., None] == torch.arange(lf.shape[-1], device=lf.device)
+    if hasattr(lf, "device_mesh"):     # a DTensor: the mask split like lf
+        hit = hit.redistribute(lf.device_mesh, lf.placements)
+    picked = (lf * hit).sum(-1)
     nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 

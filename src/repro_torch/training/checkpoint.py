@@ -16,8 +16,10 @@ reference writes them.  ``save`` copies every leaf to the host before it
 returns (a fresh copy, also of a CPU tensor), so in-place updates after it
 never reach a write still in flight; the files are written on a thread
 unless ``block``.  ``restore`` puts each leaf on the device of the
-template's leaf (or ``device``); restoring onto another mesh's shardings
-waits for the sharding slice.
+template's leaf (or ``device``), or, given ``shardings``, restores onto a
+mesh: each rank reads its own slice of each saved leaf (a memory-mapped
+read) and gets a DTensor with the leaf's placements, whatever mesh saved
+it (elastic restore).
 """
 from __future__ import annotations
 
@@ -158,21 +160,75 @@ class CheckpointManager:
         s = int(f.read_text().strip())
         return s if (self.dir / f"step_{s}").exists() else None
 
-    def restore(self, step: int, template: Any, device=None) -> Any:
+    def restore(self, step: int, template: Any, device=None,
+                shardings: Any | None = None) -> Any:
         """Load into the structure of ``template``; each leaf goes to
         ``device`` or else to the template leaf's device (the CPU for a
-        leaf that is not a tensor)."""
+        leaf that is not a tensor).  ``shardings``, a tree like
+        ``template`` of ``(DeviceMesh, spec)`` pairs (a spec of
+        :mod:`repro_torch.sharding.specs`), restores
+        every leaf as a DTensor on its mesh, from this rank's slice of the
+        saved array alone."""
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+        flat_s = _flatten_pairs(shardings) if shardings is not None else {}
         flat = {}
         for k, t in _flatten(template).items():
             meta = manifest[k]
-            arr = np.load(d / meta["file"])
+            sh = flat_s.get(k)
+            arr = np.load(d / meta["file"],
+                          mmap_mode="r" if sh is not None else None)
             want = getattr(t, "shape", None)
             if want is not None and tuple(arr.shape) != tuple(want):
                 raise ValueError(f"shape mismatch for {k}: "
                                  f"{arr.shape} vs {tuple(want)}")
+            if sh is not None:
+                flat[k] = _restore_shard(arr, meta["dtype"], *sh)
+                continue
             dev = device if device is not None else getattr(t, "device",
                                                             "cpu")
             flat[k] = from_host(arr, meta["dtype"], dev)
         return _unflatten_into(template, flat)
+
+
+def _flatten_pairs(tree: Any, prefix="") -> dict[str, Any]:
+    """``_flatten`` with ``(mesh, spec)`` pairs as leaves."""
+    if isinstance(tree, tuple) and len(tree) == 2 and hasattr(
+            tree[0], "mesh_dim_names"):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten_pairs(v, f"{prefix}/{k}"))
+        return out
+    if hasattr(tree, "_fields"):
+        out = {}
+        for k in tree._fields:
+            out.update(_flatten_pairs(getattr(tree, k), f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten_pairs(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
+def _restore_shard(arr: np.ndarray, dtype: str, mesh, spec):
+    """This rank's slice of the saved ``arr`` as a DTensor on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from ..sharding.specs import placements
+    pl = placements(mesh, spec)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(arr.shape), mesh, pl)
+    sl = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+    dev = mesh.device_type
+    if dev == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    local = from_host(np.array(arr[sl]), dtype, dev)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(arr.shape),
+                              stride=torch.empty(arr.shape,
+                                                 device="meta").stride())

@@ -72,9 +72,9 @@ def test_choices_and_slots_equal_jax(top_k, cf):
     xt = torch.from_numpy(x).reshape(B * S, D)
     _, _, idx = moe.route(torch.from_numpy(p["router"]), xt, top_k)
     cap = moe.capacity(top_k, B * S, cf, E)
-    got = moe.dispatch(idx, E, cap)
+    got = moe.dispatch(idx[None], E, cap)           # one group
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g[0].numpy(), w)
     # the zero token ties: lower expert ids first, as lax.top_k
     np.testing.assert_array_equal(idx[0].numpy(), np.arange(top_k))
     if cf < 8.0 and top_k == 2:

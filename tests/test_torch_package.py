@@ -60,7 +60,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.models.moe, repro_torch.data.tokens, "
         "repro_torch.training.optimizer, repro_torch.training.compression, "
         "repro_torch.training.checkpoint, repro_torch.training.trainer, "
-        "repro_torch.launch.train\n"
+        "repro_torch.launch.train, repro_torch.sharding.specs, "
+        "repro_torch.sharding.activation, repro_torch.launch.cells, "
+        "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+        "repro_torch.kernels.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -28,8 +28,7 @@ from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
 from repro_torch.configs import registry
 from repro_torch.convert import lm_params_from_arrays
-from repro_torch.kernels.flash_attention import FlashAttention
-from repro_torch.kernels.gla_chunk import GLAChunk
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref, gla_chunk_plain
 from repro_torch.models import transformer as tf
 from repro_torch.training import compression, optimizer
@@ -390,7 +389,7 @@ def test_flash_attention_function_grads_equal_plain_autograd(h, kv, window,
     pos = torch.arange(s, dtype=torch.int32)
     w = [torch.randn(b, s, h, dh, generator=g)]
     opts = (window, softcap, sink)
-    got = _grads(lambda *a: FlashAttention.apply(*a, pos, pos, *opts),
+    got = _grads(lambda *a: ops.flash_attention(*a, pos, pos, *opts),
                  (q, k, v), w)
     want = _grads(lambda *a: flash_attention_ref(
         *a, pos, pos, window=window, softcap=softcap, sink=sink), (q, k, v),
@@ -399,7 +398,7 @@ def test_flash_attention_function_grads_equal_plain_autograd(h, kv, window,
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
     # only the inputs that need a gradient get one
     qd = q.detach()
-    out = FlashAttention.apply(qd, k, v, pos, pos, *opts)
+    out = ops.flash_attention(qd, k, v, pos, pos, *opts)
     gk, = torch.autograd.grad(torch.sum(out * w[0]), [k])
     assert gk.shape == k.shape
 
@@ -425,7 +424,7 @@ def test_gla_function_grads_equal_plain_autograd(chunk, normalize,
          torch.randn(b, h, dk, dv, generator=g),
          torch.randn(b, h, dk, generator=g)]
     ins = (q, k, v, lf, li, s0, n0)
-    got = _grads(lambda *a: GLAChunk.apply(*a, chunk, normalize), ins, w)
+    got = _grads(lambda *a: ops.gla_chunk(*a, chunk, normalize), ins, w)
 
     def plain(q, k, v, lf, li, s0, n0):
         init = None if s0 is None else (s0, n0)

@@ -14,10 +14,16 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    shapes, and ``lane_scatter_batch`` on random batches (the serve's
    [24, N] f32 + [4, N] bool write, a 9-write eviction batch on [2, N]
    bool, masks, set and add, elements written twice, a target and a view
-   of it, batches over the parameter block), one launch a block; then
-   CUDA-event timings at the main path's shapes (the ranking kernels at
-   N = 100 and 2^20, the serve's write as one batch, as two single
-   launches and as ``index_put_``);
+   of it, batches over the parameter block), one launch a block, and the
+   point-update kernel (a serve, a second serve at the same objects, a
+   commit) at L = 1, 2, 5, 18 and 72 over N = 100 and 2^20 and one lane
+   over the 2^19-slot table with first touches (GreedyDual and other
+   lanes, masked lanes, lanes not due, inf ``complete_t``, counts 0 and
+   1), one launch a parameter block; then CUDA-event timings at the main
+   path's shapes (the ranking kernels at N = 100 and 2^20, the serve's
+   write as one batch, as two single launches and as ``index_put_``, the
+   point update's serve and commit, and on the host clock one serve call
+   against the read-back round trip it replaced);
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
    the fig2 synthetic workload (``PAPER_REQUESTS``) through the kernels, held bitwise against
    the same run through the plain versions on the card, plus the card's
@@ -185,7 +191,22 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    |logit|); measured peak memory, step time and tokens/s printed beside
    the local dry run's prediction and its roofline bound; (c) the custom
    op's host cost a call over the kernel wrapper's at phase 5's decode
-   shape.
+   shape;
+18. ``fig_realworld``: ``repro_torch.figures.fig_realworld.run`` at
+   ``REALWORLD_REQUESTS`` requests (cut from its 1,000,000, which takes
+   a 3000 s call of its own: ``figures.run --only realworld``) with every
+   section (the 11-policy roster streamed in chunks of 131,072, the
+   device and auto-chunk rows, the compaction probe at top_k 1024 / 4096
+   / 16,384 and the exact rows through the slot table), every section's
+   rows present, its LRU and eq.-16 roster rows again through the plain
+   versions bit for bit.
+
+Every engine of the replays in this process (phases 2-3, 9-12, 14's
+in-process grids and 18) holds its host mirror (the ``cached`` and
+``in_flight`` bits and ``complete_t``) against its device state, bit for
+bit, as it returns its results (``check_mirrors``); the second
+processes of 9(a) and 12(a) and 14's workers are held by their results,
+bit for bit against the in-process ones.
 
 Depth cuts for the 1,200 s limit: the replays of phases 2-3 and 9-14
 are host-bound, and with phases 15-16 added the script took 1020.5 s on
@@ -210,12 +231,17 @@ was halved again: ``PAPER_REQUESTS`` 10,000 -> 5,000,
 plain versions).  The shapes (object universes, key spaces, tables,
 lanes, models) are unchanged.
 
+Phase 18 is paid for by the point update on the card, which cut the
+replays' read-backs to their scoring commits and argmins; every earlier
+depth stays as it was.
+
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
 ``repro_torch.figures.run``); their checks are here.
 
-Each main-path run starts from zeroed launch counts, prints its
-lane-scatter launches per request, and must launch every kernel it
+Each main-path run starts from zeroed launch counts, prints its req/s,
+syncs a request and lane-scatter and point-update launches per request,
+and must launch every kernel it
 reaches (the LM runs: exactly once a layer per prompt or per
 decoded token; a fabric run's worker, counted in the worker); a run
 through the plain versions must launch none.
@@ -283,6 +309,11 @@ def ranking_inputs(n: int, density, seed: int):
 
 
 RANK_NS = (1, 100, 1025, N_DEPLOY, 1_000_003)   # fig2's table is N = 100
+# the kernels a replay's kernel run must launch: every engine's writes and
+# point updates, and its scoring (eq. 16's victim order, or its argmin)
+REPLAY_RUN = ("lane_scatter", "point_update")
+EQ16_RUN = ("ranking_victim_order",) + REPLAY_RUN
+ARGMIN_RUN = ("ranking_scores",) + REPLAY_RUN
 RANK_TOPS = (1, TOP, 64)
 
 
@@ -419,6 +450,73 @@ def check_lane_batch(err: dict) -> int:
     return cases
 
 
+POINT_LANES = (1, 2, 5, 18, 72)   # one-lane replays ... the 72-lane grid
+SLOT_TABLE = 1 << 19              # phase 11's table
+
+
+def check_point_update(err: dict) -> int:
+    """The point-update kernel against its plain versions, bitwise: L in
+    POINT_LANES over N = 100 and 2^20, one lane over the 2^19-slot table
+    with first touches; GreedyDual and other lanes, masked lanes, lanes
+    not due, estimate_z on and off, a serve repeated at its object (a
+    delayed hit), random states holding inf ``complete_t`` and counts 0
+    and 1.  Launches must equal the parameter blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ranking import EPS
+    from repro_torch.figures.bench_kernels import point_lanes, point_state
+    from repro_torch.kernels import point_update as pu
+    rng = np.random.default_rng(17)
+    shapes = [(n, lanes, False) for n in (100, N_DEPLOY)
+              for lanes in POINT_LANES] + [(SLOT_TABLE, 1, True)]
+    cases = 0
+    for seed, (n, lanes, slot) in enumerate(shapes):
+        lane = point_lanes(lanes, seed)
+        est = bool(seed % 2)
+        runs = []
+        for plain in (False, True):
+            values, flags = point_state(lanes, n, seed, "cuda")
+            table = ((torch.full((n,), -1, dtype=torch.int32,
+                                 device="cuda"),
+                      torch.zeros(n, device="cuda")) if slot else None)
+            runs.append((pu.PointUpdate(values, flags, *lane, EPS, est,
+                                        plain=plain, table=table),
+                         [values, flags] + list(table or ())))
+        blocks = -(-lanes // pu.MAX_LANES)
+        for step in range(6):
+            idx = rng.integers(0, n, lanes)
+            if lanes > 1:
+                idx[1] = idx[0]                 # two lanes, one object
+            t = np.float32([rng.uniform(0.0, 60.0)])
+            z = rng.uniform(1e-3, 0.05, lanes).astype(np.float32)
+            size = rng.uniform(1.0, 100.0, lanes).astype(np.float32)
+            clock = rng.uniform(0.0, 5.0, lanes).astype(np.float32)
+            active = rng.random(lanes) < 0.7
+            due = rng.random(lanes) < 0.6
+            fresh = ((int(rng.integers(0, 1 << 30)), np.float32(0.02))
+                     if slot and step % 2 == 0 else None)
+            t2 = t + np.float32(0.003)
+            for p, _ in runs:
+                before = pu.launches["point_update"]
+                p.serve(idx, t, z, size, clock, active, fresh)
+                p.serve(idx, t2, z, size, clock)   # a hit or a delayed hit
+                p.commit(idx, due, size, clock)
+                got = pu.launches["point_update"] - before
+                if got != (0 if p.kernel is False else 3 * blocks):
+                    raise AssertionError(f"point_update: {got} launches "
+                                         f"for {3 * blocks} blocks")
+            for a, b in zip(runs[0][1], runs[1][1]):
+                if not bitwise_equal(a, b):
+                    raise AssertionError(
+                        f"point_update != plain at N={n} L={lanes} "
+                        f"slot={slot} step {step}")
+            cases += 1
+        del runs
+        torch.cuda.empty_cache()
+    err["point_update"] = 0.0
+    return cases
+
+
 def phase_kernels() -> dict:
     """Every simulator kernel against its plain version; timings at the
     main path's shapes."""
@@ -428,7 +526,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels.lane_scatter import (lane_scatter_add,
                                                   lane_scatter_set)
     err = {"ranking_victim_order": 0.0, "ranking_scores": 0.0,
-           "lane_scatter": 0.0}
+           "lane_scatter": 0.0, "point_update": 0.0}
     cases = check_ranking(err)
     log(f"phase 1: ranking kernels bitwise equal to plain over {cases} "
         f"cases (n in {', '.join(map(str, RANK_NS))}, 2^22+1; omega "
@@ -480,11 +578,18 @@ def phase_kernels() -> dict:
         f"view of it; 240 writes over a parameter block; one write of 5000 "
         f"rows; masked or not; set, add or both; elements written twice "
         f"or not), one launch a block")
+    point_cases = check_point_update(err)
+    log(f"phase 1: point_update (serve, serve again, commit) bitwise equal "
+        f"to plain over {point_cases} steps (L {'/'.join(map(str, POINT_LANES))}"
+        f" at N = 100 and 2^20, one lane over {SLOT_TABLE} slots with first "
+        f"touches; GreedyDual lanes, masked lanes, lanes not due, "
+        f"estimate_z on and off), one launch a parameter block")
 
     # --- timings at the main path's shapes (bench_kernels) -----------------
     dev = torch.device("cuda")
-    rows = bench_kernels.time_ranking(dev) + \
-        bench_kernels.time_lane_scatter(dev)
+    rows = (bench_kernels.time_ranking(dev)
+            + bench_kernels.time_lane_scatter(dev)
+            + bench_kernels.time_point_update(dev))
     for r in rows:
         log(f"phase 1: {r['name']} at {r['shape']}: {r['us']:.2f} us/launch,"
             f" plain {r['plain_us']:.2f} us, bound {r['bound_us']:.4f} us"
@@ -496,6 +601,16 @@ def phase_kernels() -> dict:
                 f"block {r['param32k_us']:.2f} us; one batch call "
                 f"{r['host_call_us']:.2f} us on the host clock (packing + "
                 f"launch, 1000 calls)")
+        if r["name"] == "point_update":
+            log(f"phase 1: point_update commit at N={r['n']}: "
+                f"{r['commit_us']:.2f} us/launch, plain "
+                f"{r['plain_commit_us']:.2f} us")
+        if "round_trip_us" in r:
+            log(f"phase 1: point_update serve at {r['shape']}: one call "
+                f"{r['host_call_us']:.2f} us on the host clock (packing + "
+                f"launch, 1000 calls) against the round trip it replaced "
+                f"(read back, host arithmetic, lane_scatter_batch) "
+                f"{r['round_trip_us']:.2f} us")
     return {r["name"]: kernel_entry(r, err[r["name"]]) for r in rows
             if r["n"] == N_DEPLOY}
 
@@ -535,7 +650,8 @@ def drive(label, fn, needs=()):
     log(f"{label}: {dt:.2f} s, {counts['requests'] / dt:.1f} req/s, {lanes}"
         f"{counts['syncs'] / counts['requests']:.3f} syncs/request, "
         f"{counts['scoring_commits']} scoring commits, "
-        f"{lc['lane_scatter'] / counts['requests']:.3f} lane_scatter "
+        f"{lc['lane_scatter'] / counts['requests']:.3f} lane_scatter and "
+        f"{lc['point_update'] / counts['requests']:.3f} point_update "
         f"launches/request, launches {lc}")
     for k in needs:
         if lc[k] <= 0:
@@ -576,7 +692,7 @@ def phase_paper(launches: dict) -> None:
     tr = synthetic_trace(torch.Generator().manual_seed(0), spec)
     params = PolicyParams(omega=1.0, resid="recency")
     runs = {}
-    for mode, needs in ((True, ("ranking_victim_order", "lane_scatter")),
+    for mode, needs in ((True, EQ16_RUN),
                         ("ref", ())):
         runs[mode] = drive(
             f"phase 2: fig2 latency_improvement(use_kernel={mode!r})",
@@ -624,7 +740,7 @@ def phase_deploy(n_requests: int, launches: dict) -> None:
                                   evict_top=evict_top, counters=c)
 
     kern, _, lc = drive("phase 3: simulate(kernels)", sim(True),
-                        ("ranking_victim_order", "lane_scatter"))
+                        EQ16_RUN)
     add_launches(launches, lc)
     plain, _, _ = drive("phase 3: simulate(plain versions)", sim("ref"))
     if not same_result(kern, plain):
@@ -633,7 +749,7 @@ def phase_deploy(n_requests: int, launches: dict) -> None:
         f"hits {int(kern.n_hits)}, delayed {int(kern.n_delayed)}, misses "
         f"{int(kern.n_misses)}, evictions {int(kern.n_evictions)}")
     top0, _, lc = drive("phase 3: simulate(kernels, evict_top=0)",
-                        sim(True, 0), ("ranking_scores", "lane_scatter"))
+                        sim(True, 0), ARGMIN_RUN)
     add_launches(launches, lc)
     if not same_result(kern, top0):
         raise AssertionError(f"evict_top=0 {top0} != evict_top=8 {kern}")
@@ -645,7 +761,7 @@ def phase_deploy(n_requests: int, launches: dict) -> None:
         lambda c: latency_improvement(tr, capacity, "stoch_vacdh", "lru",
                                       params, estimate_z=True,
                                       use_kernel=True, counters=c),
-        ("ranking_victim_order", "lane_scatter"))
+        EQ16_RUN)
     add_launches(launches, lc)
     if not torch.isfinite(impr):
         raise AssertionError(f"improvement {impr} is not finite")
@@ -1231,7 +1347,7 @@ def phase_grid_fig2(launches: dict, grids_out: dict) -> None:
             lambda c: fig2_synthetic.run(use_kernel=True, counters=c,
                                          n_requests=FIG2_GRID_REQUESTS,
                                          grids=kern),
-            ("ranking_victim_order", "lane_scatter"))
+            EQ16_RUN)
         add_launches(launches, lc)
         status, plain = recv.recv()
     finally:
@@ -1295,7 +1411,7 @@ def phase_grid_deploy(n_requests: int, launches: dict) -> None:
 
     t0 = time.perf_counter()
     kern, kc, lc = drive("phase 9b: sweep_grid(kernels)", grid(True),
-                         ("ranking_victim_order", "lane_scatter"))
+                         EQ16_RUN)
     grid_s = time.perf_counter() - t0
     add_launches(launches, lc)
     plain, pc, _ = drive("phase 9b: sweep_grid(plain versions)", grid("ref"))
@@ -1312,7 +1428,7 @@ def phase_grid_deploy(n_requests: int, launches: dict) -> None:
             lambda c, pol=pol, pi=pi, ci=ci: simulate(
                 tr, caps[ci], pol, params[pi], estimate_z=True,
                 use_kernel=True, counters=c),
-            ("lane_scatter",))
+            REPLAY_RUN)
         add_launches(launches, lc)
         walls.append(time.perf_counter() - t0)
         if not same_result(one, kern.point(0, policies.index(pol), pi, ci,
@@ -1351,7 +1467,7 @@ def phase_stream(launches: dict, grids: dict) -> None:
         f"{stats.tail_mass:.3f}), capacity {cap:.1f} MB, chunks of 4096")
     params = PolicyParams(omega=1.0)
     runs = {}
-    for mode, needs in ((True, ("ranking_victim_order", "lane_scatter")),
+    for mode, needs in ((True, EQ16_RUN),
                         ("ref", ())):
         runs[mode] = drive(
             f"phase 10: simulate_stream(use_kernel={mode!r}, rebase=True)",
@@ -1380,13 +1496,13 @@ def phase_stream(launches: dict, grids: dict) -> None:
     whole, _, lc = drive("phase 10: fig2 simulate(kernels)", lambda c:
                          simulate(tr, 500.0, "stoch_vacdh", p2,
                                   estimate_z=True, counters=c),
-                         ("ranking_victim_order", "lane_scatter"))
+                         EQ16_RUN)
     add_launches(launches, lc)
     chunked, _, lc = drive("phase 10: fig2 simulate_chunked(4096)", lambda c:
                            simulate_chunked(tr, 500.0, "stoch_vacdh", p2,
                                             estimate_z=True, chunk_size=4096,
                                             counters=c),
-                           ("ranking_victim_order", "lane_scatter"))
+                           EQ16_RUN)
     add_launches(launches, lc)
     if not same_result(whole, chunked):
         raise AssertionError(f"simulate_chunked {chunked} != {whole}")
@@ -1395,7 +1511,7 @@ def phase_stream(launches: dict, grids: dict) -> None:
         "phase 10: fig2 rate grid, sweep_grid(chunk_size=4096)",
         lambda c: sweep_grid(tr, 500.0, list(g0.policies), list(g0.params),
                              estimate_z=True, chunk_size=4096, counters=c),
-        ("ranking_victim_order", "lane_scatter"))
+        EQ16_RUN)
     add_launches(launches, lc)
     if not same_grid(g0, g1):
         raise AssertionError("chunked grid != unchunked grid")
@@ -1469,14 +1585,14 @@ def phase_slots(launches: dict) -> None:
         return out, counts
 
     kern, kc = replay(stream, True, "slots, kernels",
-                      ("ranking_scores", "lane_scatter"),
+                      ARGMIN_RUN,
                       state_mode="slots", n_slots=n_slots)
     plain, _ = replay(stream, "ref", "slots, plain versions", (),
                       state_mode="slots", n_slots=n_slots)
     if not same_result(kern, plain):
         raise AssertionError(f"slots: kernels {kern} != plain {plain}")
     dense, _ = replay(stream, True, "dense, evict_top=0, kernels",
-                      ("ranking_scores", "lane_scatter"), evict_top=0)
+                      ARGMIN_RUN, evict_top=0)
     if not same_result(kern, dense):
         raise AssertionError(f"slots {kern} != dense {dense}")
     n = int(kern.n_hits + kern.n_delayed + kern.n_misses)
@@ -1492,13 +1608,13 @@ def phase_slots(launches: dict) -> None:
                         stream.z_mean, stream.z_draw[:k])
     n_pre = int(np.unique(pre.objs).size)
     seeds = [replay(pre, True, f"prefix, slot_seed {sd}",
-                    ("ranking_scores", "lane_scatter"), state_mode="slots",
+                    ARGMIN_RUN, state_mode="slots",
                     slot_seed=sd)[0] for sd in (0, 1)]
     if not same_result(*seeds):
         raise AssertionError(f"slot seeds differ: {seeds}")
     small = dict(state_mode="slots", n_slots=n_pre // 2)
     rk, rc = replay(pre, True, f"prefix, {n_pre // 2} slots, kernels",
-                    ("ranking_scores", "lane_scatter"), **small)
+                    ARGMIN_RUN, **small)
     rp, _ = replay(pre, "ref", f"prefix, {n_pre // 2} slots, plain "
                    f"versions", (), **small)
     if not same_result(rk, rp):
@@ -1566,7 +1682,7 @@ def phase_hier(launches: dict) -> None:
             "phase 12a: fig6_hierarchy.run(use_kernel=True)",
             lambda c: fig6_hierarchy.run(use_kernel=True, counters=c,
                                          n_requests=HIER_REQUESTS,
-                                         grids=kern), ("lane_scatter",))
+                                         grids=kern), REPLAY_RUN)
         add_launches(launches, lc)
         status, plain = recv.recv()
     finally:
@@ -1613,7 +1729,7 @@ def phase_hier(launches: dict) -> None:
         f"objects ({state_mb:.1f} MB of state), {HIER_REQUESTS} requests")
     params = PolicyParams(omega=1.0, resid="recency")
     runs = {}
-    for mode, needs in ((True, ("lane_scatter",)), ("ref", ())):
+    for mode, needs in ((True, REPLAY_RUN), ("ref", ())):
         runs[mode] = drive(
             f"phase 12b: simulate_hier(use_kernel={mode!r})",
             lambda c, mode=mode: simulate_hier(
@@ -1855,7 +1971,7 @@ def phase_fabric(launches: dict) -> None:
             bench_sweep.scaling_workload(n_requests=n)[0]
         fabric_pair(label, lambda c, kw, pols=pols, tr=tr: sweep_grid(
             tr, caps, pols, plist, counters=c, **kw),
-            ("ranking_victim_order", "lane_scatter"), launches, grid_arrays)
+            EQ16_RUN, launches, grid_arrays)
 
     base = synthetic_trace(torch.Generator().manual_seed(0),
                            fig6_hierarchy._spec(False, FABRIC_HIER_REQUESTS))
@@ -1866,7 +1982,7 @@ def phase_fabric(launches: dict) -> None:
     fabric_pair("14c", lambda c, kw: sweep_hier_grid(
         hops, 4, 400.0, (0.0, 2000.0), list(fig6_hierarchy.POLICIES),
         PolicyParams(omega=1.0), estimate_z=True, counters=c, **kw),
-        ("lane_scatter",), launches, hier_grid_arrays)
+        REPLAY_RUN, launches, hier_grid_arrays)
 
     n = torch.cuda.device_count()
     if n == 1:
@@ -2680,6 +2796,81 @@ def main() -> int:
         dry.stop()
 
 
+# --- phase 18: fig_realworld ---------------------------------------------------
+REALWORLD_REQUESTS = 5_000    # phase 18's trace, cut from 1,000,000
+
+
+def phase_realworld(launches: dict) -> None:
+    """``fig_realworld.run`` at REALWORLD_REQUESTS requests, every section;
+    its LRU and eq.-16 roster rows again through the plain versions, bit
+    for bit."""
+    from repro_torch.core import PolicyParams, simulate_stream
+    from repro_torch.figures import fig_realworld
+
+    res = {}
+    rows, _, lc = drive(
+        f"phase 18: fig_realworld.run(n_requests={REALWORLD_REQUESTS})",
+        lambda c: fig_realworld.run(n_requests=REALWORLD_REQUESTS,
+                                    counters=c, results=res),
+        EQ16_RUN + ("ranking_scores",))
+    add_launches(launches, lc)
+    sections = {}
+    for r in rows:
+        sections[r["section"], r["mode"]] = sections.get(
+            (r["section"], r["mode"]), 0) + 1
+    want = {("roster", "stream"): len(fig_realworld.POLICY_SET),
+            ("overhead", "device"): 1, ("overhead", "stream_auto"): 1,
+            ("compaction", "stream"): 2 * len(fig_realworld.PROBE_TOP_K),
+            ("compaction", "stream_slots"): 2}
+    if sections != want:
+        raise AssertionError(f"fig_realworld rows by section {sections} != "
+                             f"{want}")
+    stream, cap = res["roster_stream"]
+    for pol in ("lru", "stoch_vacdh"):
+        plain, _, _ = drive(
+            f"phase 18: roster {pol} through the plain versions",
+            lambda c, pol=pol: simulate_stream(
+                stream, cap, pol, PolicyParams(omega=1.0), estimate_z=True,
+                chunk_size=fig_realworld.CHUNK_SIZE, use_kernel="ref",
+                counters=c))
+        if not same_result(plain, res["roster", "stream", None, pol]):
+            raise AssertionError(f"fig_realworld roster {pol}: kernels "
+                                 f"{res['roster', 'stream', None, pol]} != "
+                                 f"plain {plain}")
+    for r in rows:
+        log(f"phase 18: {r['section']} {r['mode']} {r.get('top_k', '')} "
+            f"{r['policy']}: improvement {r.get('improvement_vs_lru')}, "
+            f"hit ratio {r.get('hit_ratio')}, {r['req_per_s']} req/s")
+    log(f"phase 18: every section's rows present; roster LRU and eq. 16 "
+        f"kernels == plain bitwise")
+
+
+def check_mirrors() -> list:
+    """Make every engine hold, as it returns its results, its host mirror
+    against its device state: the ``cached`` and ``in_flight`` bits and
+    ``complete_t``, bit for bit.  Returns a one-element list counting the
+    checks."""
+    import numpy as np
+    from repro_torch.core import simulator
+    done = [0]
+    result = simulator._Engine.result
+
+    def checked(self):
+        out = result(self)
+        bits = self.st.flags.cpu().numpy()
+        ct = self.st.values[0].cpu().numpy()
+        bad_bits = int((bits != self.m_bits).sum())
+        bad_ct = int((ct.view(np.int32) != self.m_ct.view(np.int32)).sum())
+        if bad_bits or bad_ct:
+            raise AssertionError(f"host mirror != device state: {bad_bits} "
+                                 f"bits and {bad_ct} complete_t differ")
+        done[0] += 1
+        return out
+
+    simulator._Engine.result = checked
+    return done
+
+
 def run_phases(args, t0, dry) -> int:
     import torch
     phase_s = {}
@@ -2693,6 +2884,7 @@ def run_phases(args, t0, dry) -> int:
 
     timings = timed("1", phase_kernels)
     timings.update(timed("4", phase_attention))
+    mirrors = check_mirrors()
     launches, grids = {}, {}
     timed("2", phase_paper, launches)
     timed("3", phase_deploy, args.requests, launches)
@@ -2712,8 +2904,11 @@ def run_phases(args, t0, dry) -> int:
     timed("15", phase_moe_serve, launches)
     timed("16", phase_train, launches)
     timed("17", phase_cells, launches, dry)
+    timed("18", phase_realworld, launches)
     log(f"seconds by phase: {phase_s}")
-    log(f"launches over the main-path runs of phases 2-3, 5 and 7-17: "
+    log(f"host mirrors equal to the device state at the end of "
+        f"{mirrors[0]} replays")
+    log(f"launches over the main-path runs of phases 2-3, 5 and 7-18: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 
@@ -2724,6 +2919,8 @@ def run_phases(args, t0, dry) -> int:
                            "src/repro/kernels/ranking_score.py:44"),
         "lane_scatter": ("kernels/csrc/lane_scatter.cu",
                          "src/repro/kernels/lane_scatter.py:81"),
+        "point_update": ("kernels/csrc/point_update.cu",
+                         "src/repro/kernels/lane_scatter.py:95"),
         "flash_attention": ("kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:79"),
         "decode_attention": ("kernels/csrc/decode_attention.cu",

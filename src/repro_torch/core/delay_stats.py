@@ -12,10 +12,21 @@ z_i its mean miss latency, and D_i = Z_i + sum over arrivals t' in
 The closed forms take tensors or Python numbers and compute in the
 arguments' dtype (f32 for the simulator), in the same operation order as
 the JAX reference so the two agree to the last bit on basic arithmetic.
+
+Subnormals follow the reference's rule: XLA runs with flush-to-zero and
+denormals-are-zero on the CPU and the TPU, so a subnormal input or
+intermediate result reads as zero there.  Each closed form here flushes
+its inputs and every operation's result (:func:`_ftz`, per tensor, not
+``torch.set_flush_denormal``, which would change the whole process), in
+the reference's operation order; for normal values that is a no-op.
+``core.state.kahan_add``, the simulator's latency sum, follows the same
+rule.
 """
 from __future__ import annotations
 
 import torch
+
+from .state import flush_subnormals
 
 __all__ = [
     "det_mean", "det_var", "stoch_mean", "stoch_var", "stoch_std",
@@ -24,42 +35,62 @@ __all__ = [
 ]
 
 
-def _t(x):
-    return x if isinstance(x, torch.Tensor) else torch.tensor(
-        x, dtype=torch.float32)
+def _ftz(x):
+    """``x`` (a Python number: f32) with its subnormal entries read as
+    zero (:func:`repro_torch.core.state.flush_subnormals`)."""
+    return flush_subnormals(x if isinstance(x, torch.Tensor) else
+                            torch.tensor(x, dtype=torch.float32))
+
+
+# One rounded operation each, its result flushed as XLA flushes it.
+def _add(a, b):
+    return _ftz(a + b)
+
+
+def _sub(a, b):
+    return _ftz(a - b)
+
+
+def _mul(a, b):
+    return _ftz(a * b)
+
+
+def _div(a, b):
+    return _ftz(a / b)
 
 
 # Theorem 1: E[D] = z(1 + lambda z / 2), Var[D] = lambda z^3 / 3.
 def det_mean(lam, z):
     """Mean aggregate delay under deterministic miss latency (Theorem 1)."""
-    lam, z = _t(lam), _t(z)
-    return z * (1.0 + 0.5 * lam * z)
+    lam, z = _ftz(lam), _ftz(z)
+    return _mul(z, _add(1.0, _mul(_mul(0.5, lam), z)))
 
 
 def det_var(lam, z):
     """Variance of aggregate delay under deterministic latency (Theorem 1)."""
-    lam, z = _t(lam), _t(z)
-    return lam * (z * z * z) / 3.0
+    lam, z = _ftz(lam), _ftz(z)
+    return _div(_mul(lam, _mul(_mul(z, z), z)), 3.0)
 
 
 # Theorem 2 (Z ~ Exp(1/z)): E[D] = z + lambda z^2,
 # Var[D] = z^2 + 6 lambda z^3 + 5 lambda^2 z^4.
 def stoch_mean(lam, z):
     """Mean aggregate delay under Exp miss latency (Theorem 2, eq. 6)."""
-    lam, z = _t(lam), _t(z)
-    return z + lam * (z * z)
+    lam, z = _ftz(lam), _ftz(z)
+    return _add(z, _mul(lam, _mul(z, z)))
 
 
 def stoch_var(lam, z):
     """Variance of aggregate delay under Exp miss latency (Theorem 2, eq. 7)."""
-    lam, z = _t(lam), _t(z)
-    z2 = z * z
-    return z2 + 6.0 * lam * z2 * z + 5.0 * lam * lam * z2 * z2
+    lam, z = _ftz(lam), _ftz(z)
+    z2 = _mul(z, z)
+    return _add(_add(z2, _mul(_mul(_mul(6.0, lam), z2), z)),
+                _mul(_mul(_mul(_mul(5.0, lam), lam), z2), z2))
 
 
 def stoch_std(lam, z):
     """Standard deviation of aggregate delay under Exp miss latency."""
-    return torch.sqrt(stoch_var(lam, z))
+    return _ftz(torch.sqrt(stoch_var(lam, z)))
 
 
 # Arbitrary fetch-time laws: conditional on Z, D = Z + compound-Poisson
@@ -68,15 +99,17 @@ def stoch_std(lam, z):
 #   Var[D] = lambda m3 / 3 + Var[Z] + lambda Cov(Z, Z^2) + lambda^2 Var[Z^2] / 4
 def agg_mean_from_moments(lam, m1, m2):
     """E[D] from the first two raw moments of the fetch time Z."""
-    return m1 + 0.5 * lam * m2
+    lam, m1, m2 = _ftz(lam), _ftz(m1), _ftz(m2)
+    return _add(m1, _mul(_mul(0.5, lam), m2))
 
 
 def agg_var_from_moments(lam, m1, m2, m3, m4):
     """Var[D] from the first four raw moments of the fetch time Z."""
-    return (lam * m3 / 3.0
-            + (m2 - m1 * m1)
-            + lam * (m3 - m1 * m2)
-            + 0.25 * lam * lam * (m4 - m2 * m2))
+    lam, m1, m2, m3, m4 = (_ftz(x) for x in (lam, m1, m2, m3, m4))
+    return _add(_add(_add(_div(_mul(lam, m3), 3.0),
+                          _sub(m2, _mul(m1, m1))),
+                     _mul(lam, _sub(m3, _mul(m1, m2)))),
+                _mul(_mul(_mul(0.25, lam), lam), _sub(m4, _mul(m2, m2))))
 
 
 # Monte-Carlo oracle: D = Z + sum_{j<K} V_j, K ~ Poisson(lambda Z),

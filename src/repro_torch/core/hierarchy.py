@@ -15,12 +15,12 @@ draw on an L2 miss).
 The L1 shards are lanes of one simulator engine
 (:class:`repro_torch.core.simulator._Engine`) and the L2 is a second
 engine, so each tier runs the single-tier commit/serve code.  A request
-commits the L2's due fetches, then the shards' in lockstep; reads every L1
-lane at the object in one read-back and takes the miss at the owning
-shard; serves the L2 gated on that miss (no L2 read-back when no lane
-missed); then serves the owning shard from the values already read.  The
-engines take ``[L]`` fetch times and an ``[L]`` active mask for that: a
-masked lane writes back its own bits and keeps its counters.
+commits the L2's due fetches, then the shards' in lockstep; reads the
+owning shard's bits at the object from the L1 engine's host mirror and
+takes the miss there; serves the L2 gated on that miss; then serves the
+owning shard.  Neither read costs a sync.  The engines take ``[L]``
+fetch times and an ``[L]`` active mask for that: a masked lane keeps its
+point and its counters.
 
 Both tiers score through the policies' epilogues, as the reference's
 hierarchy does; ``use_kernel`` chooses only the writes
@@ -239,15 +239,14 @@ class _Hier:
                 i, s = int(objs[r]), int(shards[r])
                 l2._commit_due(t)
                 l1._commit_due(t)
-                g, b = l1._gather(i)
                 own = self.owner0 + s
-                miss = ~(b[0, own] | b[1, own])
+                miss = ~(l1.m_bits[0, own, i] | l1.m_bits[1, own, i])
                 l2_lat = (l2._serve(t, i, z_draw[r:r + 1], active=miss)
                           if miss.any() else np.zeros(self.G, _F))
                 z_eff = hops[self.hop_rows, r] + np.where(miss, l2_lat,
                                                           _ZERO)
                 l1._serve(t, i, np.repeat(z_eff, self.S),
-                          active=self.lane_shard == s, gathered=(g, b))
+                          active=self.lane_shard == s)
         l1.requests += times.shape[0]
 
     def results(self) -> list[HierResult]:

@@ -15,15 +15,18 @@ is not admitted.
 Where the work runs:
 
 - The per-object state (``[L, N]`` per field) lives on the device.  Every
-  point update (a serve at object i, a commit at object j) gathers the
-  fields at that object for all lanes in one read-back, computes the new
-  values on the host in f32, and writes them back with one batched
-  lane-scatter launch (its indices and values ride in the kernel's
-  parameters, so the write needs no copy).  That read-back is the one
-  device sync of a serve or a commit.
-- The per-lane scalars (free capacity, clocks, counters, Kahan sums) and a
-  heap of the outstanding fetches live on the host, so the commit check
-  ``min_complete <= t`` costs no sync.
+  point update (a serve at object i, a commit at object j) is one launch
+  of the point-update kernel (:mod:`repro_torch.kernels.point_update`),
+  which does the field arithmetic on the card at one object a lane; its
+  indices, times and clocks ride in the kernel's parameters.  A serve or
+  a commit reads nothing back.
+- The host keeps what its decisions read: a mirror of the ``cached`` and
+  ``in_flight`` bits and of ``complete_t`` for every lane and object,
+  written by the same decisions that write the card (the serve's miss,
+  the commit, evictions, admissions) and shifted with the card's times.
+  The per-lane scalars (free capacity, clocks, counters, Kahan sums) and a
+  heap of the outstanding fetches live on the host too, so the commit
+  check ``min_complete <= t`` costs no sync.
 - A commit that needs space scores the whole table on the device (the
   eq.-16 kernels for the paper's policy, the policy's epilogue otherwise),
   then reads back the ascending victim order once; the evict-until-fit
@@ -32,11 +35,11 @@ Where the work runs:
   ``ranking_victim_order``, or through ``ranking_scores`` when
   ``evict_top=0``.  Evicting more than ``evict_top``
   victims for one admission falls back to a per-eviction argmin on the
-  device (phase 2), bitwise identical to walking a longer order.
+  device (phase 2), bitwise identical to walking a longer order.  These
+  are a replay's only read-backs: one a scoring commit, one an argmin.
 
-Lanes run in lockstep: a lane with no due commit writes back its own bits
-and keeps its scalars, so each lane's result equals a single-lane run bit
-for bit.  Each lane has its own policy, capacity, :class:`PolicyParams`
+Lanes run in lockstep: a lane with no due commit keeps its point and its
+scalars, so each lane's result equals a single-lane run bit for bit.  Each lane has its own policy, capacity, :class:`PolicyParams`
 and coin key; all lanes of an engine replay one request sequence.
 ``latency_improvement`` runs the policy and its baseline as two lanes of
 one state, :func:`repro_torch.core.sweep.sweep_grid` a whole grid.
@@ -56,7 +59,8 @@ shard and one per L2, through the per-lane ``active`` mask and fetch
 times of :meth:`_Engine._serve`.
 
 Host arithmetic uses numpy f32 arrays with f32 constants; every operation
-rounds once, in the reference's order (numpy never fuses a multiply-add).
+rounds once, in the reference's order (numpy never fuses a multiply-add),
+as the point-update kernel's does on the card.
 """
 from __future__ import annotations
 
@@ -70,13 +74,13 @@ from .._device import resolve_device
 from ..kernels import ranking_score as _rs
 from ..kernels import ref as _ref
 from ..kernels.lane_scatter import lane_scatter_batch
+from ..kernels.point_update import PointUpdate
 from . import prng
 from .distributions import Exponential
 from .ranking import (EPS, POLICIES, PolicyParams, _f32, epi_stochastic_vacdh,
                       make_substrate)
-from .state import (FIELD, F32_FIELDS, SLOT_EMPTY, init_slot_state,
-                    init_state, kahan_add, shift_times, slot_home,
-                    slot_table_size)
+from .state import (SLOT_EMPTY, init_slot_state, init_state, kahan_add,
+                    shift_times, slot_home, slot_table_size)
 from .trace import RequestStream, Trace, auto_chunk_size, stream_of_trace
 
 # How many victims the rank-and-select pass pre-orders per commit; 0 scores
@@ -89,14 +93,12 @@ EVICT_TOP = 8
 #   'kernel' the eq.-16 CUDA kernels for the paper's policy (their plain
 #            versions when the state lies on the CPU)
 #   'ref'    the plain PyTorch versions of every kernel (the eq.-16
-#            scoring and the lane-scatter writes), on any device
+#            scoring, the point updates and the lane-scatter writes), on
+#            any device
 _SCORE_MODES = ("rank", "kernel", "ref")
 
 _F = np.float32
 _ZERO, _ONE, _INF = _F(0.0), _F(1.0), _F(np.inf)
-_EPS = _F(EPS)
-_Z_OLD, _Z_NEW = _F(0.7), _F(0.3)
-_NF = len(F32_FIELDS)
 
 
 @dataclasses.dataclass
@@ -147,18 +149,6 @@ def _trace_on(trace: Trace, dev: torch.device) -> Trace:
                                        trace.z_mean, trace.z_draw)))
 
 
-def _lambda_hat(gap_mean, count, cold_rate):
-    """:func:`repro_torch.core.ranking.lambda_hat` on host f32 arrays."""
-    lam = _ONE / np.maximum(gap_mean, _EPS)
-    return np.where(count >= _F(2.0), lam, cold_rate)
-
-
-def _agg_mean_hat(agg_sum, agg_cnt, z_est):
-    """:func:`repro_torch.core.ranking.agg_mean_hat` on host f32 arrays."""
-    m = agg_sum / np.maximum(agg_cnt, _ONE)
-    return np.where(agg_cnt > _ZERO, m, z_est)
-
-
 def eviction_pick(cached: torch.Tensor, ranks: torch.Tensor,
                   ids: torch.Tensor | None) -> torch.Tensor:
     """One eviction of the per-eviction loop: the lowest-ranked cached
@@ -182,7 +172,7 @@ class _Engine:
                  capacities, policies: tuple, params: tuple,
                  keys: tuple, estimate_z: bool, score_mode: str,
                  evict_top, plain_writes: bool | None = None,
-                 state=None):
+                 state=None, table=None):
         self.dev = sizes.device
         self.L = len(policies)
         self.pols = [POLICIES[n] for n in policies]
@@ -206,17 +196,19 @@ class _Engine:
         st = (init_state(self.n, capacities, z_mean, self.L, self.dev)
               if state is None else state)
         self.st = st
-        self.rows_f = st.values.view(_NF * self.L, self.n)
-        self.rows_b = st.flags.view(-1, self.n)
         self.cached = st.flags[0]
         # each lane's fields as [N] views (the state is updated in place)
         self.lane_obj = [st.obj.lane(li) for li in range(self.L)]
-        # the lane ids, and a host buffer (pinned on a card) for the
-        # indices of a commit's gather and of its scoring pass; every use
-        # ends in a read-back before the next one refills it
-        self._lanes = torch.arange(self.L, device=self.dev)
+        # a host buffer (pinned on a card) for the indices of a scoring
+        # pass; every use ends in a read-back before the next one refills it
         self._hidx = torch.empty(2 * self.L, dtype=torch.int64,
                                  pin_memory=self.dev.type == "cuda")
+        # the host mirror: cached / in_flight [2, L, N] and complete_t
+        # [L, N], as a fresh state holds them
+        self.m_bits = np.zeros((2, self.L, self.n), bool)
+        self.m_ct = np.full((self.L, self.n), np.inf, np.float32)
+        self._lane_ids = np.arange(self.L)
+        self._bit_rows = {v: np.full(self.L, v) for v in (False, True)}
         # host scalars: numpy views of the state's [L] CPU tensors
         self.free = st.free.numpy()
         self.gd_clock = st.gd_clock.numpy()
@@ -236,11 +228,16 @@ class _Engine:
         self.cold_rate = lane(lambda p: p.cold_rate)
         self.gap_alpha = lane(lambda p: p.gap_alpha)
         self.adapt_c = lane(lambda p: p.adapt_c)
+        self._point = PointUpdate(st.values, st.flags, self.gd, self.gd_rate,
+                                  self.cold_rate, self.gap_alpha, EPS,
+                                  estimate_z, plain=plain_writes,
+                                  table=table)
         self.heaps = [[] for _ in range(self.L)]
         self.requests = 0
         self.syncs = 0
         self.commits = 0
         self.scored = 0
+        self.argmins = 0
 
     # --- device traffic ---------------------------------------------------
     def _read(self, t: torch.Tensor) -> np.ndarray:
@@ -248,34 +245,18 @@ class _Engine:
         self.syncs += 1
         return t.cpu().numpy()
 
-    def _gather(self, idx):
-        """Every field at object ``idx[l]`` of each lane l (``idx`` an int
-        for one object in every lane): f32 [12, L] and bool [2, L] host
-        arrays, in one read-back."""
-        if np.ndim(idx) == 0 or (idx == idx[0]).all():
-            i = int(idx) if np.ndim(idx) == 0 else int(idx[0])
-            v = self.st.values[:, :, i]
-            f = self.st.flags[:, :, i]
-        else:
-            self._hidx.numpy()[:self.L] = idx
-            j = self._hidx[:self.L].to(self.dev, non_blocking=True)
-            v = self.st.values[:, self._lanes, j]
-            f = self.st.flags[:, self._lanes, j]
-        a = self._read(torch.cat([v, f.to(torch.float32)]))
-        return a[:_NF].copy(), a[_NF:] > 0.5
-
     def _scatter(self, writes):
         """Lane-scatter writes ``(x [R, N], idx [R], val [R], valid [R] or
         None, add)`` with host operands, in list order: one
         ``lane_scatter_batch`` call (one launch on the card)."""
         self._lane_write(writes)
 
-    def _point_writes(self, idx, new_f, new_b):
-        """All fields of every lane at ``idx[l]``: rows (field, lane)."""
-        idx = np.broadcast_to(np.asarray(idx, np.int32), (self.L,))
-        return [(self.rows_f, np.tile(idx, _NF), new_f.reshape(-1), None,
-                 False),
-                (self.rows_b, np.tile(idx, 2), new_b.reshape(-1), None,
+    def _set_cached(self, lanes_mask, idx, value: bool) -> list:
+        """The ``cached`` write of ``idx[l]`` on the masked lanes, to the
+        mirror now and to the card in the returned batch entry."""
+        lanes = self._lane_ids[lanes_mask]
+        self.m_bits[0, lanes, idx[lanes]] = value
+        return [(self.cached, idx, self._bit_rows[value], lanes_mask,
                  False)]
 
     # --- scoring ----------------------------------------------------------
@@ -357,16 +338,6 @@ class _Engine:
         """The index of lane ``li``'s earliest outstanding fetch."""
         return heapq.heappop(self.heaps[li])[-1]
 
-    # --- GreedyDual cost ----------------------------------------------------
-    def _gd_cost(self, f, size):
-        """GreedyDual cost term for the object whose fields are ``f``."""
-        cost = _agg_mean_hat(f[FIELD["agg_sum"]], f[FIELD["agg_cnt"]],
-                             f[FIELD["z_est"]])
-        lam = _lambda_hat(f[FIELD["gap_mean"]], f[FIELD["count"]],
-                          self.cold_rate)
-        cost = np.where(self.gd_rate, cost * lam, cost)
-        return cost / np.maximum(size, _EPS)
-
     # --- commit ---------------------------------------------------------------
     def _commit(self, due: np.ndarray) -> None:
         """Commit the earliest outstanding fetch of every due lane."""
@@ -375,26 +346,17 @@ class _Engine:
         j = np.zeros(L, np.int64)
         for li in np.flatnonzero(due):
             j[li] = self._pop(li)
-        g, b = self._gather(j)
-        f = lambda name: g[FIELD[name]]
-        t_c = f("complete_t")
-        realized = t_c - f("issue_t")
-        ep = f("episode_delay")
+        lanes = self._lane_ids[due]
+        t_c = self.m_ct[self._lane_ids, j]
+        s_j = self.sizes_np[j]
 
-        # --- finalize the miss episode's statistics -----------------------
-        new = g.copy()
-        new[FIELD["agg_sum"]] = f("agg_sum") + ep
-        new[FIELD["agg_sq_sum"]] = f("agg_sq_sum") + ep * ep
-        new[FIELD["agg_cnt"]] = f("agg_cnt") + _ONE
-        new[FIELD["episode_delay"]] = _ZERO
-        new[FIELD["complete_t"]] = _INF
-        if self.estimate_z:
-            new[FIELD["z_est"]] = _Z_OLD * f("z_est") + _Z_NEW * realized
-        new_b = b.copy()
-        new_b[1] = False                                 # in_flight
+        # --- finalize the miss episode on the card: its statistics, the
+        # z_est EMA and the GreedyDual refresh at the exact completion time
+        self._point.commit(j, due, s_j, self.gd_clock)
+        self.m_bits[1, lanes, j[lanes]] = False
+        self.m_ct[lanes, j[lanes]] = _INF
         min_c = np.array([h[0][0] if h else np.inf for h in self.heaps],
                          np.float32)
-        s_j = self.sizes_np[j]
 
         # --- admission coin (AdaptSize) ------------------------------------
         admit_ok = np.ones(L, bool)
@@ -402,15 +364,6 @@ class _Engine:
             self.keys[li], sub = prng.split(self.keys[li])
             admit_ok[li] = prng.uniform(sub) < np.exp(
                 -s_j[li:li + 1] / self.adapt_c[li:li + 1])[0]
-
-        # --- GreedyDual H refresh at the exact completion time ---------------
-        if self.gd.any():
-            hj = self.gd_clock + self._gd_cost(new, s_j)
-            new[FIELD["gd_h"]] = np.where(self.gd, hj, f("gd_h"))
-
-        # lanes with no due commit write back their own bits
-        self._scatter(self._point_writes(j, np.where(due, new, g),
-                                         np.where(due, new_b, b)))
 
         # --- rank-and-select, only where the commit needs space -------------
         gate = due & admit_ok & (self.free < s_j)
@@ -453,8 +406,7 @@ class _Engine:
             v = o_idx[:, k]
             e = evict(act, v, o_val[:, k])
             if e.any():
-                evictions.append((self.cached, v, np.zeros(L, bool), e,
-                                  False))
+                evictions += self._set_cached(e, v, False)
 
         # phase 2: per-eviction argmin, when one admission needs more
         # victims than the order holds (rare)
@@ -466,6 +418,7 @@ class _Engine:
                 self._scatter(evictions)
                 evictions = []
             lanes = np.flatnonzero(act)
+            self.argmins += 1
             back = self._read(torch.stack([
                 eviction_pick(self.cached[li], ranks[li], self.ids)
                 for li in lanes]))
@@ -475,14 +428,12 @@ class _Engine:
             vv[lanes] = back[:, 1].view(np.float32)
             e = evict(act, v, vv)
             if e.any():
-                evictions.append((self.cached, v, np.zeros(L, bool), e,
-                                  False))
+                evictions += self._set_cached(e, v, False)
 
         # --- admission --------------------------------------------------------
         do_admit = due & admit_ok & ok & (free >= s_j)
         if do_admit.any():
-            evictions.append((self.cached, j, np.ones(L, bool), do_admit,
-                              False))
+            evictions += self._set_cached(do_admit, j, True)
         if evictions:
             self._scatter(evictions)
         free = np.where(do_admit, free - s_j, free)
@@ -502,61 +453,38 @@ class _Engine:
             self._commit(due)
 
     # --- serve ----------------------------------------------------------------
-    def _serve(self, t, i: int, z, active=None, gathered=None,
-               writes=()) -> np.ndarray:
+    def _serve(self, t, i: int, z, active=None, fresh=None) -> np.ndarray:
         """Serve the request (t, i); ``z`` (one or ``[L]``) is its fetch
         time if it misses.  Returns each lane's latency.
 
         ``active`` (bool ``[L]``) gates the serve per lane: a masked lane
-        writes back its own bits and keeps its scalars, and its latency is
-        computed all the same (the hierarchy reads it).  ``gathered`` is
-        the fields at ``i`` when the caller has them (no read-back then);
-        ``writes`` ride in the serve's write batch."""
-        g, b = self._gather(i) if gathered is None else gathered
-        f = lambda name: g[FIELD[name]]
+        keeps its point and its scalars, and its latency is computed all
+        the same (the hierarchy reads it).  ``fresh`` is a slot table's
+        first touch (:meth:`_SlotEngine._locate`), written in the serve's
+        launch.  The latency branch reads the mirror; the fields are
+        updated on the card."""
+        b = self.m_bits[:, :, i].copy()
         is_hit, is_delayed = b[0], b[1]
         is_miss = ~(is_hit | is_delayed)
-        ct = f("complete_t")
+        ct = self.m_ct[:, i].copy()
         lat_delayed = np.maximum(ct - t, _ZERO)
         lat = np.where(is_hit, _ZERO, np.where(is_delayed, lat_delayed, z))
-
-        # --- miss: issue fetch --------------------------------------------
         comp = np.where(is_miss, t + z, ct)
-        new = g.copy()
-        new[FIELD["complete_t"]] = comp
-        new[FIELD["issue_t"]] = np.where(is_miss, t, f("issue_t"))
-        new[FIELD["episode_delay"]] = np.where(
-            is_miss, z,
-            f("episode_delay") + np.where(is_delayed, lat, _ZERO))
-        new_b = b.copy()
-        new_b[1] = is_miss | is_delayed
-
-        # --- access statistics (every request) ------------------------------
-        cnt = f("count")
-        gap = t - f("last_access")
-        gm0 = f("gap_mean")
-        a_eff = np.maximum(self.gap_alpha, _ONE / np.maximum(cnt, _ONE))
-        new[FIELD["gap_mean"]] = np.where(
-            cnt <= _ZERO, gm0,
-            np.where(cnt == _ONE, gap, gm0 + a_eff * (gap - gm0)))
-        new[FIELD["first_access"]] = np.where(cnt == _ZERO, t,
-                                              f("first_access"))
-        new[FIELD["last_access"]] = t
-        new[FIELD["count"]] = cnt + _ONE
-        if self.gd.any():
-            hi = self.gd_clock + self._gd_cost(new, self.sizes_np[[i]])
-            new[FIELD["gd_h"]] = np.where(self.gd & is_hit, hi, f("gd_h"))
+        self._point.serve(i, t, z, self.sizes_np[i], self.gd_clock, active,
+                          fresh)
+        in_flight = is_miss | is_delayed
         if active is not None:
-            new = np.where(active, new, g)
-            new_b = np.where(active, new_b, b)
+            in_flight = np.where(active, in_flight, is_delayed)
+            comp = np.where(active, comp, ct)
             is_hit, is_delayed, is_miss = (is_hit & active,
                                            is_delayed & active,
                                            is_miss & active)
+        self.m_bits[1, :, i] = in_flight
+        self.m_ct[:, i] = comp
         self.min_complete[:] = np.minimum(self.min_complete,
                                           np.where(is_miss, comp, _INF))
         for li in np.flatnonzero(is_miss):
             self._push(li, float(comp[li]), i)
-        self._scatter(list(writes) + self._point_writes(i, new, new_b))
 
         lat_sum, lat_comp = kahan_add(self.lat_sum, self.lat_comp, lat)
         if active is not None:
@@ -570,9 +498,9 @@ class _Engine:
 
     # --- the request feed ---------------------------------------------------
     def _locate(self, obj: int):
-        """``(index, fields, writes)`` of object ``obj`` for its serve: in
-        the dense state its own index, fields read back by the serve."""
-        return obj, None, ()
+        """``(index, fresh)`` of object ``obj`` for its serve: in the dense
+        state its own index, never a first touch."""
+        return obj, None
 
     def feed(self, times: np.ndarray, objs: np.ndarray,
              z_draw: np.ndarray) -> None:
@@ -582,19 +510,20 @@ class _Engine:
             for r in range(times.shape[0]):
                 t = times[r:r + 1]
                 self._commit_due(t)
-                i, fields, writes = self._locate(int(objs[r]))
-                self._serve(t, i, z_draw[r:r + 1], gathered=fields,
-                            writes=writes)
+                i, fresh = self._locate(int(objs[r]))
+                self._serve(t, i, z_draw[r:r + 1], fresh=fresh)
         self.requests += times.shape[0]
 
     def shift(self, delta: np.float32) -> None:
         """Rebase every absolute time by ``-delta`` (f32), as the reference
         state's ``shift_times`` does: the state's time fields on the card,
-        the host ``min_complete`` and each lane's heap of completion times
-        (re-heaped, since distinct times may round to one)."""
+        the host ``min_complete``, the mirror's ``complete_t`` and each
+        lane's heap of completion times (re-heaped, since distinct times
+        may round to one)."""
         if delta == 0:
             return
         shift_times(self.st, float(delta))
+        self.m_ct -= delta
         for li, h in enumerate(self.heaps):
             self.heaps[li] = [(float(np.float32(e[0]) - delta), *e[1:])
                               for e in h]
@@ -610,15 +539,8 @@ class _Engine:
 
     def stats(self) -> dict:
         return {"requests": self.requests, "syncs": self.syncs,
-                "commits": self.commits, "scoring_commits": self.scored}
-
-
-# The fields of a slot at insertion: an object's first-touch values, as a
-# fresh dense state holds them (z_est is the object's prior, set per insert).
-_FRESH = np.zeros((_NF, 1), np.float32)
-for _name, _v in (("complete_t", _INF), ("last_access", -_INF),
-                  ("first_access", -_INF)):
-    _FRESH[FIELD[_name]] = _v
+                "commits": self.commits, "scoring_commits": self.scored,
+                "argmins": self.argmins}
 
 
 class _SlotEngine(_Engine):
@@ -630,11 +552,11 @@ class _SlotEngine(_Engine):
     Only the host inserts, so the probe table is the host array
     ``key_np``; the card holds ``key_tab`` for the id tie-break of the
     per-eviction argmin and the per-slot sizes for the scoring pass, both
-    written in the serve's write batch.  A first touch knows its slot's
-    fields (the first-touch values), so it serves without a read-back.
-    The host heap holds ``(complete_t, object id, slot)``: commits pop in
-    completion order with ties broken by object id, as the dense engine's
-    do, and ``inflight`` marks the slots with an outstanding fetch."""
+    written by the first touch's serve launch, which also starts the slot
+    from the first-touch fields.  The host heap holds ``(complete_t,
+    object id, slot)``: commits pop in completion order with ties broken
+    by object id, as the dense engine's do, and the mirror's ``in_flight``
+    marks the slots with an outstanding fetch."""
 
     def __init__(self, n_slots: int, slot_seed: int, sizes_full, z_prior,
                  capacity, policy: str, params: PolicyParams, key,
@@ -642,70 +564,57 @@ class _SlotEngine(_Engine):
         st = init_slot_state(n_slots, capacity, slot_seed, dev)
         super().__init__(st.tab.sizes, None, capacity, (policy,),
                          (params,), (key,), estimate_z, score_mode, 0,
-                         state=st.sim)
+                         state=st.sim, table=(st.tab.key_tab, st.tab.sizes))
         self.tab = st.tab
         self.ids = st.tab.key_tab
-        self._key_rows = st.tab.key_tab.view(1, -1)
-        self._size_rows = st.tab.sizes.view(1, -1)
         self.key_np = np.full(n_slots, SLOT_EMPTY, np.int64)
         self.sizes_np = np.zeros(n_slots, np.float32)
-        self.inflight = np.zeros(n_slots, bool)
         self.sizes_full = np.asarray(sizes_full, np.float32)
         self.z_prior = np.asarray(z_prior, np.float32)
         self.reclaims = 0
 
     def _push(self, li, comp, i):
         heapq.heappush(self.heaps[li], (comp, int(self.key_np[i]), i))
-        self.inflight[i] = True
-
-    def _pop(self, li):
-        i = heapq.heappop(self.heaps[li])[-1]
-        self.inflight[i] = False
-        return i
 
     def _reclaim(self, home: int) -> int:
         """The table is full: take the first slot in probe order from
         ``home`` with no outstanding fetch (the home slot when every slot
-        has one, dropping its fetch).  Its occupant is evicted if cached
-        (one read-back), and a dropped fetch leaves the heap."""
+        has one, dropping its fetch).  Its occupant is evicted if cached,
+        and a dropped fetch leaves the heap (the mirror tells both)."""
         order = (home + np.arange(self.n)) % self.n
-        idle = np.flatnonzero(~self.inflight[order])
+        idle = np.flatnonzero(~self.m_bits[1, 0, order])
         v = int(order[idle[0]]) if idle.size else home
-        _, b = self._gather(v)
-        if b[0, 0]:
+        if self.m_bits[0, 0, v]:
             self.free[:] = self.free + self.sizes_np[v]
             self.n_evictions[:] = self.n_evictions + _ONE
-        if self.inflight[v]:
+        if self.m_bits[1, 0, v]:
             h = [e for e in self.heaps[0] if e[-1] != v]
             heapq.heapify(h)
             self.heaps[0] = h
-            self.inflight[v] = False
             self.min_complete[:] = h[0][0] if h else _INF
         self.reclaims += 1
         return v
 
     def _locate(self, obj: int):
-        """``(slot, fields, writes)``: the object's slot; on a first touch
-        also its fields for the serve and the table writes."""
+        """``(slot, fresh)``: the object's slot, and on a first touch the
+        ``(id, z prior)`` its serve launch starts the slot from."""
         n = self.n
         s = home = int(slot_home(obj, self.tab.seed, n))
         for _ in range(n):
             k = self.key_np[s]
             if k == obj:
-                return s, None, ()
+                return s, None
             if k == SLOT_EMPTY:
                 break
             s = s + 1 if s + 1 < n else 0
         else:
             s = self._reclaim(home)
-        size = self.sizes_full[obj]
         self.key_np[s] = obj
-        self.sizes_np[s] = size
-        g = _FRESH.copy()
-        g[FIELD["z_est"]] = self.z_prior[obj]
-        writes = [(self._key_rows, [s], [obj], None, False),
-                  (self._size_rows, [s], [size], None, False)]
-        return s, (g, np.zeros((2, 1), bool)), writes
+        self.sizes_np[s] = self.sizes_full[obj]
+        # the slot's first-touch bits and complete_t, as the launch writes
+        self.m_bits[:, 0, s] = False
+        self.m_ct[0, s] = _INF
+        return s, (obj, self.z_prior[obj])
 
     def stats(self) -> dict:
         return {**super().stats(), "reclaims": self.reclaims}

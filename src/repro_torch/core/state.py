@@ -129,12 +129,32 @@ def shift_times(state: SimState, delta: float) -> SimState:
     return state
 
 
+_TINY = {}      # dtype -> its smallest normal value
+
+
+def flush_subnormals(x):
+    """``x`` (a tensor or a numpy array) with its subnormal entries read as
+    zero, in its own dtype: the rule XLA follows on the CPU and the TPU
+    (flush-to-zero, denormals-are-zero), which the reference's results
+    carry."""
+    if isinstance(x, torch.Tensor):
+        return x * (x.abs() >= torch.finfo(x.dtype).tiny)
+    x = np.asarray(x)
+    tiny = _TINY.get(x.dtype)
+    if tiny is None:
+        tiny = _TINY[x.dtype] = np.finfo(x.dtype).tiny
+    return x * (np.abs(x) >= tiny)
+
+
 def kahan_add(total, comp, x):
     """Compensated accumulation; keeps long f32 sums exact to ~1 ulp.
-    Four separate f32 operations in this order (tensors or f32 arrays)."""
-    y = x - comp
-    t = total + y
-    comp = (t - total) - y
+    Four separate f32 operations in this order (tensors or f32 arrays),
+    each input and result flushed as the reference's are
+    (:func:`flush_subnormals`)."""
+    total, comp, x = (flush_subnormals(v) for v in (total, comp, x))
+    y = flush_subnormals(x - comp)
+    t = flush_subnormals(total + y)
+    comp = flush_subnormals(flush_subnormals(t - total) - y)
     return t, comp
 
 

@@ -1,4 +1,4 @@
-"""Kernel timings: the port's six hand-written kernels at the main path's
+"""Kernel timings: the port's hand-written kernels at the main path's
 shapes, beside their bounds, their plain versions and a library call.
 
     python3 -m repro_torch.figures.bench_kernels [--device cpu]
@@ -17,8 +17,9 @@ On the CPU (``device="cpu"``) the wrappers run their plain versions, so
 only ``plain_us`` and ``library_us`` are measured (host clock), at small
 shapes, and ``us`` is None.
 
-Shapes on the card: the ranking kernels and the serve's lane-scatter write
-at N = 100 (fig2's table) and 2^20 (the deployment table); the attention
+Shapes on the card: the ranking kernels, the serve's lane-scatter write
+and the point update's serve and commit at N = 100 (fig2's table) and 2^20
+(the deployment table); the attention
 kernels at StableLM-2-1.6B's (B 1, 32 heads of 64, 2048 tokens) and
 Hymba-1.5B's shapes (25 q / 5 KV heads of 64, window 1024, a 128-token
 sink); ``gla_chunk`` at xLSTM-350M's and Hymba-1.5B's prefill, bf16.
@@ -193,6 +194,104 @@ def time_lane_scatter(dev, sizes=(100, N_DEPLOY), reps=100) -> list[dict]:
             time_ms(lambda: ref.lane_scatter_batch_ref(serve), reps, dev),
             bound, "bytes", how, "2 x index_put_" if lib is not None
             else None, lib, n=n, **extra))
+    return rows
+
+
+def point_state(lanes: int, n: int, seed: int, device):
+    """A random ``[12, L, N]`` f32 / ``[2, L, N]`` bool simulator state on
+    ``device`` with the engine's edge values: ``complete_t`` inf where no
+    fetch is out, counts 0, 1 and more, empty episode statistics."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        (lanes, n), generator=g, device=device)
+    pick = lambda p: torch.rand((lanes, n), generator=g, device=device) < p
+    count = torch.floor(u(0.0, 6.0))
+    values = torch.stack([
+        torch.where(pick(0.4), float("inf"), u(0.0, 50.0)),   # complete_t
+        u(0.0, 40.0), torch.where(count > 0, u(0.0, 40.0), -float("inf")),
+        torch.where(count > 0, u(0.0, 20.0), -float("inf")),
+        u(0.0, 2.0), count, u(1e-3, 0.05),                     # ... z_est
+        u(0.0, 1.0), u(0.0, 1.0), torch.floor(u(0.0, 3.0)),   # agg_*
+        u(0.0, 0.1), u(0.0, 5.0)]).contiguous()                # ep, gd_h
+    flags = torch.stack([pick(0.5), pick(0.3)]).contiguous()
+    return values, flags
+
+
+def point_lanes(lanes: int, seed: int):
+    """Random lane constants ``(gd, gd_rate, cold_rate, gap_alpha)``: half
+    the lanes GreedyDual, half of those with the rate cost."""
+    rng = np.random.default_rng(seed)
+    gd = rng.random(lanes) < 0.5
+    return (gd, gd & (rng.random(lanes) < 0.5),
+            rng.uniform(0.5, 2.0, lanes).astype(np.float32),
+            rng.choice(np.float32([0.01, 0.1, 0.5]), lanes))
+
+
+def time_point_update(dev, sizes=(100, N_DEPLOY), reps=100) -> list[dict]:
+    """One serve and one commit launch of the point-update kernel at L = 1
+    over each N of ``sizes``, beside their plain versions; at the largest
+    N also one launch's host cost and the round trip it replaced (the
+    fields at the object read back, the new values computed on the host,
+    written with one ``lane_scatter_batch``), on the host clock."""
+    from ..core.ranking import EPS
+    from ..kernels import ref
+    from ..kernels.lane_scatter import lane_scatter_batch
+    from ..kernels.point_update import PointUpdate
+    # 12 f32 fields and 2 flags read and written at one object
+    bound = 2 * (12 * 4 + 2) / HBM_BYTES_PER_S * 1e3
+    how = "one lane: 12 f32 fields + 2 bool flags read and written"
+    rows = []
+    for n in sizes:
+        values, flags = point_state(1, n, 11, dev)
+        gd, gd_rate, cold, alpha = point_lanes(1, 11)
+        lane = (gd, gd_rate, cold, alpha)
+        kern = PointUpdate(values, flags, *lane, EPS, True)
+        plain = PointUpdate(values, flags, *lane, EPS, True, plain=True)
+        i = n // 3
+        t, z = np.float32([30.0]), np.float32([0.01])
+        size, clock = np.float32([7.0]), np.float32([1.5])
+        due = np.ones(1, bool)
+        serve = lambda pu: pu.serve(i, t, z, size, clock)
+        commit = lambda pu: pu.commit(np.array([i]), due, size, clock)
+        extra = {}
+        if n == max(sizes) and dev.type == "cuda":
+            plane = plain.lane
+
+            def round_trip():
+                a = torch.cat([values[:, :, i], flags[:, :, i].float()]) \
+                    .cpu()
+                g, b = a[:12].reshape(12, 1, 1).clone(), \
+                    (a[12:] > 0.5).reshape(2, 1, 1)
+                ref.point_serve_ref(
+                    g, b, torch.zeros(1, dtype=torch.int64),
+                    torch.tensor(t[0]), torch.from_numpy(z),
+                    torch.from_numpy(size), torch.from_numpy(clock),
+                    tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                          for x in plane))
+                lane_scatter_batch([
+                    (values.view(12, n), np.full(12, i), g.numpy().ravel(),
+                     None, False),
+                    (flags.view(2, n), np.full(2, i), b.numpy().ravel(),
+                     None, False)])
+
+            def host_us(fn, k=1000):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(k):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / k * 1e6
+
+            extra = dict(host_call_us=host_us(lambda: serve(kern)),
+                         round_trip_us=host_us(round_trip, 300))
+        rows.append(_row(
+            "point_update", f"serve, L=1, N={n}", dev,
+            _kernel_ms(dev, lambda: serve(kern), reps),
+            time_ms(lambda: serve(plain), reps, dev), bound, "bytes", how,
+            n=n, commit_us=None if dev.type != "cuda"
+            else time_ms(lambda: commit(kern), reps, dev) * 1e3,
+            plain_commit_us=time_ms(lambda: commit(plain), reps, dev) * 1e3,
+            **extra))
     return rows
 
 
@@ -452,6 +551,7 @@ def run(device=None) -> list[dict]:
         sizes, reps = (100, 4096), 5
     rows = (time_ranking(dev, sizes, reps) + time_lane_scatter(dev, sizes,
                                                                 reps)
+            + time_point_update(dev, sizes, reps)
             + time_attention(dev) + time_gla(dev))
     write_bench_json("bench_kernels.json", dict(
         benchmark="bench_kernels", device=str(dev), rows=rows))

@@ -2,8 +2,10 @@
 the card unless ``--device cpu``.
 
     python3 -m repro_torch.figures.run
-        [--only fig2,fig3,fig4,fig5,fig6,kernels,sweep,serving,memory]
-        [--full] [--smoke] [--compare] [--device cpu]
+        [--only fig2,fig3,fig4,fig5,fig6,kernels,sweep,serving,memory,
+                realworld]
+        [--full] [--smoke] [--compare] [--exact-full] [--requests N]
+        [--device cpu]
 
 Prints each job's rows as CSV lines and writes them to
 ``repro_torch/figures/results/<job>.csv``; ``--compare`` adds fig4's and
@@ -13,8 +15,11 @@ fig6's per-point-loop vs grid timings (``fig4_sweep_speedup.csv``,
 fabric (``bench_sweep``), ``serving`` the SLO bench (``bench_serving``);
 each also writes ``results/<bench>.json``, and ``--smoke`` sizes
 ``sweep`` and ``serving`` small.  ``memory`` (the dense-vs-slots probe,
-one child process a cell) runs only when named.  Prints the card's name
-and power limit first when it runs on one.
+one child process a cell) and ``realworld`` (the million-request
+streaming replay of ``fig_realworld``, ``results/bench_stream.json``;
+``--full`` 5M requests, ``--exact-full`` the whole trace through the slot
+table too, ``--requests`` a cut trace) run only when named.  Prints the card's name and power limit
+first when it runs on one.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import sys
 import time
 
 JOBS = ("fig3", "fig2", "fig4", "fig5", "fig6", "kernels", "sweep",
-        "serving", "memory")
+        "serving", "memory", "realworld")
+# jobs that run only when named
+NAMED_ONLY = ("memory", "realworld")
 
 
 def _memory(device) -> None:
@@ -54,12 +61,18 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", action="store_true",
                     help="with fig4 and fig6: time the per-point loop vs "
                          "the grids")
+    ap.add_argument("--exact-full", action="store_true",
+                    help="with realworld: also replay the whole trace "
+                         "aliasing-free through the slot table")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="with realworld: cut the trace to this many "
+                         "requests (default 1,000,000; 5,000,000 --full)")
     ap.add_argument("--device", default=None,
                     help="cpu to run the plain versions on the CPU "
                          "(default: the card)")
     args = ap.parse_args(argv)
     want = (set(args.only.split(",")) if args.only
-            else set(JOBS) - {"memory"})
+            else set(JOBS) - set(NAMED_ONLY))
     unknown = want - set(JOBS)
     if unknown:
         ap.error(f"unknown jobs {sorted(unknown)}; known: {list(JOBS)}")
@@ -67,7 +80,7 @@ def main(argv=None) -> int:
     from .._device import resolve_device
     from . import (bench_kernels, bench_serving, bench_sweep,
                    fig2_synthetic, fig3_trace_stats, fig4_sensitivity,
-                   fig5_real_traces, fig6_hierarchy)
+                   fig5_real_traces, fig6_hierarchy, fig_realworld)
     from .common import emit
 
     dev = resolve_device(args.device)
@@ -97,6 +110,9 @@ def main(argv=None) -> int:
         "serving": lambda: emit(bench_serving.run(
             full=full, smoke=args.smoke, device=d), "bench_serving"),
         "memory": lambda: _memory(d),
+        "realworld": lambda: emit(fig_realworld.run(
+            full=full, exact_full=args.exact_full, device=d,
+            n_requests=args.requests), "fig_realworld"),
     }
     for name in JOBS:
         if name not in want:

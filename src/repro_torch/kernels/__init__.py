@@ -2,6 +2,7 @@
 
 - :mod:`ranking_score`    eq.-16 scores + victim selection (``csrc/ranking_score.cu``)
 - :mod:`lane_scatter`     per-lane point writes into ``[L, N]`` state; a batch of them in one launch (``csrc/lane_scatter.cu``)
+- :mod:`point_update`     the replay's serve and commit arithmetic at one object a lane (``csrc/point_update.cu``)
 - :mod:`flash_attention`  prefill attention (``csrc/flash_attention.cu``)
 - :mod:`decode_attention` one-token attention over a KV cache (``csrc/decode_attention.cu``)
 - :mod:`gla_chunk`        chunked gated linear attention for mLSTM / Mamba heads (``csrc/gla_chunk.cu``)
@@ -9,12 +10,13 @@
 - :mod:`_build`           nvcc build + ctypes loading, at first use
 """
 from . import (decode_attention, flash_attention, gla_chunk, lane_scatter,
-               ranking_score)
+               point_update, ranking_score)
 from .lane_scatter import (lane_scatter_add, lane_scatter_batch,
                            lane_scatter_set)
 from .ranking_score import ranking_scores, ranking_victim_order
 
 _COUNTERS = (ranking_score.launches, lane_scatter.launches,
+             point_update.launches,
              flash_attention.launches, decode_attention.launches,
              gla_chunk.launches)
 

@@ -38,6 +38,10 @@ SIGNATURES = {
         "lane_scatter": [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _P],
         "lane_scatter_batch": [_P, _INT, _P],
     },
+    "point_update": {
+        "point_serve": [_P, _INT, _P],
+        "point_commit": [_P, _INT, _P],
+    },
     "flash_attention": {
         "flash_attention": [_P] * 6 + [_INT] * 6 + [_I64] * 9
         + [_F32, _INT, _F32, _INT, _INT, _P],

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
-The ranking and lane-scatter functions compute exactly what their CUDA
-kernels compute, in the same f32 operation order, so on the card the two
+The ranking, lane-scatter and point-update functions compute exactly what
+their CUDA kernels compute, in the same f32 operation order, so on the card the two
 agree bit for bit (those kernels are built with ``--fmad=false``).  The
 attention functions are the JAX package's oracles (``kernels/ref.py``):
 an f32 softmax over the whole key axis, where the kernels run an online
@@ -150,6 +150,126 @@ def lane_scatter_batch_ref(writes):
         val = torch.from_numpy(lane_host_vals(x.dtype, val, rows))
         fn = lane_scatter_add_ref if add else lane_scatter_set_ref
         fn(x, torch.where(ok, idx, 0), val.to(x.device), ok)
+
+
+# ---------------------------------------------------------------------------
+# The replay's point update (the oracle of csrc/point_update.cu)
+# ---------------------------------------------------------------------------
+# Rows of the [12, L, N] f32 state, in repro_torch.core.state.F32_FIELDS
+# order, and of the [2, L, N] bool state (cached, in_flight).
+(CT, IT, LA, FA, GM, CNT, ZE, AS, AQ, AC, EP, GH) = range(12)
+_INF = float("inf")
+
+
+def _gd_cost(f, size, gd_rate, cold_rate, eps):
+    """GreedyDual cost of the points whose fields are ``f`` [12, L]: the
+    mean aggregate delay (times the arrival rate on ``gd_rate`` lanes)
+    over the size."""
+    cost = torch.where(f[AC] > 0.0, f[AS] / torch.clamp(f[AC], min=1.0),
+                       f[ZE])
+    lam = torch.where(f[CNT] >= 2.0, 1.0 / torch.clamp(f[GM], min=eps),
+                      cold_rate)
+    cost = torch.where(gd_rate, cost * lam, cost)
+    return cost / torch.clamp(size, min=eps)
+
+
+def point_serve_ref(values, flags, idx, t, z, size, gd_clock, lane,
+                    active=None, fresh=None):
+    """Serve one request at object ``idx[l]`` of every lane l, in place.
+
+    ``values`` f32 [12, L, N] and ``flags`` bool [2, L, N] are the state;
+    ``idx`` int [L]; ``t`` the request time (0-d f32); ``z`` (f32 [L]) its
+    fetch time if it misses; ``size`` (f32 [L]) the object's size;
+    ``gd_clock`` (f32 [L]) each lane's GreedyDual clock; ``lane`` the lanes'
+    ``(gd, gd_rate, cold_rate, gap_alpha, eps)`` ([L] tensors, eps a
+    float).  A lane with ``active[l]`` False keeps its point.  ``fresh``
+    is a slot table's first touch, ``(key_tab, sizes, key, z_prior)``: on
+    every active lane the slot at ``idx`` takes object ``key``
+    (``key_tab[idx] = key``, ``sizes[idx] = size``) and starts from the
+    first-touch fields with ``z_est = z_prior``.
+
+    Every operation rounds once, in the order of the JAX reference's
+    ``_serve``: the latency branch (hit, delayed hit, miss), a miss's
+    fetch (``complete_t``, ``issue_t``, ``episode_delay``), the in-flight
+    bit, the gap mean under the ``a_eff`` rule, the access times and count,
+    and on a GreedyDual hit ``gd_h = gd_clock + cost``."""
+    gd, gd_rate, cold_rate, gap_alpha, eps = lane
+    lanes = torch.arange(values.shape[1], device=values.device)
+    idx = idx.long()
+    g0 = g = values[:, lanes, idx]
+    b0 = b = flags[:, lanes, idx]
+    if fresh is not None:
+        key_tab, sizes, key, z_prior = fresh
+        on = torch.ones_like(b[0]) if active is None else active
+        key_tab[idx] = torch.where(on, key, key_tab[idx])
+        sizes[idx] = torch.where(on, size, sizes[idx])
+        g = torch.zeros_like(g0)
+        g[CT] = _INF
+        g[LA] = -_INF
+        g[FA] = -_INF
+        g[ZE] = z_prior
+        b = torch.zeros_like(b0)
+    hit, delayed = b[0], b[1]
+    miss = ~(hit | delayed)
+    ct = g[CT]
+    lat = torch.where(hit, 0.0, torch.where(
+        delayed, torch.clamp(ct - t, min=0.0), z))
+    new = list(g)
+    new[CT] = torch.where(miss, t + z, ct)
+    new[IT] = torch.where(miss, t, g[IT])
+    new[EP] = torch.where(miss, z, g[EP] + torch.where(delayed, lat, 0.0))
+    cnt = g[CNT]
+    gap = t - g[LA]
+    gm0 = g[GM]
+    a_eff = torch.maximum(gap_alpha, 1.0 / torch.clamp(cnt, min=1.0))
+    new[GM] = torch.where(cnt <= 0.0, gm0, torch.where(
+        cnt == 1.0, gap, gm0 + a_eff * (gap - gm0)))
+    new[FA] = torch.where(cnt == 0.0, t, g[FA])
+    new[LA] = t.expand_as(cnt)
+    new[CNT] = cnt + 1.0
+    hi = gd_clock + _gd_cost(new, size, gd_rate, cold_rate, eps)
+    new[GH] = torch.where(gd & hit, hi, g[GH])
+    new = torch.stack(new)
+    new_b = torch.stack([hit, miss | delayed])
+    if active is not None:
+        new = torch.where(active, new, g0)
+        new_b = torch.where(active, new_b, b0)
+    values[:, lanes, idx] = new
+    flags[:, lanes, idx] = new_b
+
+
+def point_commit_ref(values, flags, idx, due, size, gd_clock, lane,
+                     estimate_z: bool):
+    """Commit the outstanding fetch of object ``idx[l]`` of every lane l
+    with ``due[l]``, in place (the others keep their points).
+
+    In the order of the JAX reference's ``_commit_one``: the episode's
+    statistics (``agg_sum += ep``, ``agg_sq_sum += ep * ep``, ``agg_cnt +=
+    1``, the adds of its ``lane_add``), ``episode_delay = 0``,
+    ``complete_t = inf``, ``in_flight`` cleared, the ``z_est`` EMA of the
+    realized fetch time ``complete_t - issue_t`` when ``estimate_z``, and
+    on GreedyDual lanes ``gd_h = gd_clock + cost`` at the commit.
+    Arguments as in :func:`point_serve_ref`; ``cached`` is not touched
+    (admission is the caller's write)."""
+    gd, gd_rate, cold_rate, _, eps = lane
+    lanes = torch.arange(values.shape[1], device=values.device)
+    idx = idx.long()
+    g = values[:, lanes, idx]
+    realized = g[CT] - g[IT]
+    ep = g[EP]
+    new = list(g)
+    new[AS] = g[AS] + ep
+    new[AQ] = g[AQ] + ep * ep
+    new[AC] = g[AC] + 1.0
+    new[EP] = torch.zeros_like(ep)
+    new[CT] = torch.full_like(ep, _INF)
+    if estimate_z:
+        new[ZE] = 0.7 * g[ZE] + 0.3 * realized
+    hj = gd_clock + _gd_cost(new, size, gd_rate, cold_rate, eps)
+    new[GH] = torch.where(gd, hj, g[GH])
+    values[:, lanes, idx] = torch.where(due, torch.stack(new), g)
+    in_flight = flags[1, lanes, idx]
+    flags[1, lanes, idx] = in_flight & ~due
 
 
 # ---------------------------------------------------------------------------

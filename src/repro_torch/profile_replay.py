@@ -19,9 +19,11 @@ replays a window of requests and prints one JSON line per cell with:
 - device busy seconds: the sum of CUDA kernel and memcpy time in a
   ``torch.profiler`` trace of a second replay of the same window, and the
   idle share ``1 - busy / wall`` against the unprofiled wall time;
-- host seconds inside the replay engine's parts (gather = read-back,
-  scatter = packing + the batched lane-scatter launch, select = the
-  scoring pass + victim order, rest = host control flow), or the prefix
+- host seconds inside the replay engine's parts (point_serve and
+  point_commit = packing + the point-update launch, scatter = packing +
+  the eviction and admission lane-scatter launch, select = the scoring
+  pass + victim order, read = the read-backs, rest = host control flow
+  and the mirror), or the prefix
   cache's (flush = the mirror's lane-scatter batch, ranks = the
   substrate + the rank's launches, victims = the read-back, rest = the
   event loop), from wrappers around their methods; they include the time
@@ -39,7 +41,7 @@ import sys
 import time
 
 
-def _timed(cls, name, acc):
+def _timed(cls, name, label, acc):
     fn = getattr(cls, name)
 
     def wrapper(*a, **k):
@@ -47,9 +49,19 @@ def _timed(cls, name, acc):
         try:
             return fn(*a, **k)
         finally:
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
     setattr(cls, name, wrapper)
     return fn
+
+
+def replay_parts():
+    """The replay engine's timed parts: ``(class, method, label)``."""
+    from .core.simulator import _Engine
+    from .kernels.point_update import PointUpdate
+    return [(PointUpdate, "serve", "point_serve"),
+            (PointUpdate, "commit", "point_commit"),
+            (_Engine, "_scatter", "scatter"), (_Engine, "_select", "select"),
+            (_Engine, "_read", "read")]
 
 
 def _device_seconds(prof) -> float:
@@ -63,21 +75,20 @@ def _device_seconds(prof) -> float:
     return total_us / 1e6
 
 
-def profile_cell(label, run, cls=None, names=("_gather", "_scatter",
-                                              "_select"), nested=False):
+def profile_cell(label, run, parts=None, nested=False):
     """Profile ``run()`` (which returns its counters) as one cell; host
-    parts are the seconds inside ``cls``'s methods ``names`` (default the
-    replay engine's), or, when ``nested``, each method less the one
-    before it (``names`` from the innermost call out)."""
+    parts are the seconds inside the methods ``parts`` (``(class, method,
+    label)``; default :func:`replay_parts`), or, when ``nested``, each
+    method less the one before it (``parts`` from the innermost call
+    out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from .core import simulator
     from .kernels import launch_counts, reset_launch_counts
 
-    cls = simulator._Engine if cls is None else cls
+    parts = replay_parts() if parts is None else parts
     run()                                    # warm-up: builds, allocator
     acc = {}
-    orig = {n: _timed(cls, n, acc) for n in names}
+    orig = {(cls, n): _timed(cls, n, lab, acc) for cls, n, lab in parts}
     try:
         reset_launch_counts()
         torch.cuda.synchronize()
@@ -87,7 +98,7 @@ def profile_cell(label, run, cls=None, names=("_gather", "_scatter",
         wall = time.perf_counter() - t0
         launched = launch_counts()
     finally:
-        for n, fn in orig.items():
+        for (cls, n), fn in orig.items():
             setattr(cls, n, fn)
     # the device work of a second, profiled replay (the profiler slows the
     # host, so wall time comes from the unprofiled one above)
@@ -101,10 +112,11 @@ def profile_cell(label, run, cls=None, names=("_gather", "_scatter",
                   if e.self_device_time_total > 0),
                  key=lambda x: -x[1])[:8]
     if nested:
-        inner = [0.0] + [acc.get(n, 0.0) for n in names]
-        acc = {n: inner[k + 1] - inner[k] for k, n in enumerate(names)}
-    parts = {k.lstrip("_"): round(v, 6) for k, v in acc.items()}
-    parts["rest"] = round(wall - sum(acc.values()), 6)
+        inner = [0.0] + [acc.get(lab, 0.0) for _, _, lab in parts]
+        acc = {lab: inner[k + 1] - inner[k]
+               for k, (_, _, lab) in enumerate(parts)}
+    host = {k: round(v, 6) for k, v in acc.items()}
+    host["rest"] = round(wall - sum(acc.values()), 6)
     out = {"cell": label, "requests": counts["requests"],
            "wall_s": wall, "req_per_s": counts["requests"] / wall,
            "syncs_per_request": counts["syncs"] / counts["requests"],
@@ -112,7 +124,7 @@ def profile_cell(label, run, cls=None, names=("_gather", "_scatter",
                k: v / counts["requests"]
                for k, v in launched.items() if v},
            "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-           "host_s": parts,
+           "host_s": host,
            "top_device_ops": [{"op": k, "s": s, "count": c}
                               for k, s, c in top]}
     if "lane_requests" in counts:
@@ -141,8 +153,9 @@ def profile_serving(n_requests: int) -> None:
             c = eng.cache.counters
             return {"requests": len(reqs), "syncs": c["syncs"],
                     "admissions": c["admits"]}
-        profile_cell(f"serving_{policy}", run, DelayedHitPrefixCache,
-                     ("flush", "ranks", "_victims"), nested=True)
+        profile_cell(f"serving_{policy}", run,
+                     [(DelayedHitPrefixCache, n, n.lstrip("_"))
+                      for n in ("flush", "ranks", "_victims")], nested=True)
 
 
 def main() -> int:

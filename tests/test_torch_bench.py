@@ -23,7 +23,8 @@ from repro_torch.figures import bench_kernels, bench_sweep, probe_memory
 RTOL = 1e-5
 TIMED = ("first_call_s", "warm_s", "warm_min_s", "req_per_s")
 KERNELS = {"ranking_victim_order", "ranking_scores", "lane_scatter",
-           "flash_attention", "decode_attention", "gla_chunk"}
+           "point_update", "flash_attention", "decode_attention",
+           "gla_chunk"}
 
 
 def test_bench_sweep_shares_the_reference_workload():

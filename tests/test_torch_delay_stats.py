@@ -2,6 +2,7 @@
 package, on the grids of tests/test_delay_stats.py and
 tests/test_distributions.py; its Monte-Carlo oracle and samplers
 statistically (torch.Generator streams are not jax.random's)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -48,6 +49,31 @@ def test_closed_forms_match_jax_on_vectors():
         np.testing.assert_allclose(
             ours(torch.from_numpy(lam), torch.from_numpy(z)).numpy(),
             np.asarray(ref(lam, z)), rtol=RTOL, err_msg=ours.__name__)
+
+
+# Subnormal inputs and intermediates: XLA flushes them to zero, and the
+# port follows that rule (the first case is a hypothesis draw that once
+# made det_var 4.796e-41 in the port against 0.0 in JAX).
+SUBNORMAL = [(1.4388068673503903e-40, 1.0), (1.0, 1e-39), (0.3, 1e-41),
+             (2.0, 3e-20), (1e-30, 1e-5), (5.0, 2e-13)]
+
+
+@pytest.mark.parametrize("lam,z", SUBNORMAL)
+def test_subnormals_follow_the_references_flush_rule(lam, z):
+    for ours, ref in [(ds.det_mean, jds.det_mean), (ds.det_var, jds.det_var),
+                      (ds.stoch_mean, jds.stoch_mean),
+                      (ds.stoch_var, jds.stoch_var),
+                      (ds.stoch_std, jds.stoch_std)]:
+        assert float(ours(lam, z)) == float(ref(lam, z)), ours.__name__
+    # the same f32 moments to both (as device arrays, so JAX's XLA runs)
+    host = [np.float32(np.float32(z) ** k) for k in range(1, 5)]
+    m = [torch.tensor(x) for x in host]
+    jm = [jnp.asarray(x) for x in host]
+    jlam = jnp.asarray(np.float32(lam))
+    assert float(ds.agg_mean_from_moments(lam, *m[:2])) == float(
+        jds.agg_mean_from_moments(jlam, *jm[:2]))
+    assert float(ds.agg_var_from_moments(lam, *m)) == float(
+        jds.agg_var_from_moments(jlam, *jm))
 
 
 @pytest.mark.parametrize("lam,z", CASES)

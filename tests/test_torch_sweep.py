@@ -25,6 +25,7 @@ from repro_torch.core import (Erlang, Hyperexponential, PolicyParams,
                               simulate, sweep_grid)
 from repro_torch.core.prng import key_data
 from repro_torch.core.simulator import _Engine
+from repro_torch.kernels.point_update import PointUpdate
 
 RTOL = 1e-5
 COUNTERS = ("n_hits", "n_delayed", "n_misses", "n_evictions")
@@ -212,39 +213,51 @@ def test_lanes_committing_different_objects_in_one_step():
     names = ["lru", "stoch_vacdh", "lhd_mad"]
     params = [PolicyParams(omega=1.0)]
     counters, seen = {}, []
-    gather = _Engine._gather
+    commit = PointUpdate.commit
 
-    def spy(self, idx):
-        if np.ndim(idx) == 1 and len(set(np.asarray(idx).tolist())) > 1:
+    def spy(self, idx, due, size, gd_clock):
+        if len(set(np.asarray(idx)[due].tolist())) > 1:
             seen.append(1)
-        return gather(self, idx)
+        return commit(self, idx, due, size, gd_clock)
 
-    _Engine._gather = spy
+    PointUpdate.commit = spy
     try:
         g = sweep_grid(tr, caps, names, params, estimate_z=True,
                        device="cpu", counters=counters)
     finally:
-        _Engine._gather = gather
-    assert seen, "no commit gathered different objects across lanes"
+        PointUpdate.commit = commit
+    assert seen, "no commit updated different objects across lanes"
     assert counters["lane_requests"] == len(caps) * len(names) * \
         SPEC.n_requests
     _assert_vs_simulate(g, [tr], names, params, caps, [0], True)
 
 
 def test_gather_of_different_objects_equals_stacked_reads():
+    """A commit at a different object in each lane updates each lane's
+    point exactly as a one-lane commit there would."""
     _, tr = _traces()
     L = 5
-    eng = _Engine(tr.sizes, tr.z_mean, [50.0] * L, ("lru",) * L,
-                  (PolicyParams(),) * L, ((0, 0),) * L, False, "ref", None)
+    names = ("lru", "lru_mad", "lhd_mad", "stoch_vacdh", "lru")
+    eng = _Engine(tr.sizes, tr.z_mean, [50.0] * L, names,
+                  (PolicyParams(),) * L, ((0, 0),) * L, True, "ref", None)
     g = torch.Generator().manual_seed(0)
-    eng.st.values.copy_(torch.randn(eng.st.values.shape, generator=g))
+    eng.st.values.copy_(torch.rand(eng.st.values.shape, generator=g))
     eng.st.flags.copy_(torch.rand(eng.st.flags.shape, generator=g) > 0.5)
+    before = eng.st.values.clone(), eng.st.flags.clone()
     idx = np.array([3, 0, 39, 3, 17], np.int64)
-    got_f, got_b = eng._gather(idx)
-    want_f = torch.stack([eng.st.values[:, l, int(j)]
-                          for l, j in enumerate(idx)], 1).numpy()
-    want_b = torch.stack([eng.st.flags[:, l, int(j)]
-                          for l, j in enumerate(idx)], 1).numpy()
-    np.testing.assert_array_equal(got_f.view(np.int32),
-                                  want_f.view(np.int32))
-    np.testing.assert_array_equal(got_b, want_b)
+    due = np.array([True, True, True, False, True])
+    clock = np.linspace(0.0, 1.0, L, dtype=np.float32)
+    eng._point.commit(idx, due, eng.sizes_np[idx], clock)
+    for lane in range(L):
+        one = _Engine(tr.sizes, tr.z_mean, [50.0], (names[lane],),
+                      (PolicyParams(),), ((0, 0),), True, "ref", None)
+        one.st.values.copy_(before[0][:, lane:lane + 1])
+        one.st.flags.copy_(before[1][:, lane:lane + 1])
+        j = idx[lane:lane + 1]
+        one._point.commit(j, due[lane:lane + 1], one.sizes_np[j],
+                          clock[lane:lane + 1])
+        np.testing.assert_array_equal(
+            eng.st.values[:, lane].numpy().view(np.int32),
+            one.st.values[:, 0].numpy().view(np.int32))
+        np.testing.assert_array_equal(eng.st.flags[:, lane].numpy(),
+                                      one.st.flags[:, 0].numpy())

@@ -15,15 +15,17 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    [24, N] f32 + [4, N] bool write, a 9-write eviction batch on [2, N]
    bool, masks, set and add, elements written twice, a target and a view
    of it, batches over the parameter block), one launch a block, and the
-   point-update kernel (a serve, a second serve at the same objects, a
-   commit) at L = 1, 2, 5, 18 and 72 over N = 100 and 2^20 and one lane
-   over the 2^19-slot table with first touches (GreedyDual and other
-   lanes, masked lanes, lanes not due, inf ``complete_t``, counts 0 and
-   1), one launch a parameter block; then CUDA-event timings at the main
-   path's shapes (the ranking kernels at N = 100 and 2^20, the serve's
-   write as one batch, as two single launches and as ``index_put_``, the
-   point update's serve and commit, and on the host clock one serve call
-   against the read-back round trip it replaced);
+   point-update journal's kernel against the plain journal on the CPU
+   test's random journals (serves, commits and cached-bit sets, chains
+   of ops at one point, each journal flushed at three cuts) at L = 1, 2,
+   5, 18 and 72 over N = 100 and 2^20 and one lane over the 2^19-slot
+   table with first touches (GreedyDual and other lanes, masked lanes,
+   lanes not due, inf ``complete_t``, counts 0 and 1), one launch a
+   parameter block; then CUDA-event timings at the main path's shapes
+   (the ranking kernels at N = 100 and 2^20, the serve's write as one
+   batch, as two single launches and as ``index_put_``, a journal's
+   flush of 1, 4, 16 and 256 ops over 1 and 18 lanes, and on the host
+   clock an appended op and a flush call);
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
    the fig2 synthetic workload (``PAPER_REQUESTS``) through the kernels, held bitwise against
    the same run through the plain versions on the card, plus the card's
@@ -233,7 +235,11 @@ lanes, models) are unchanged.
 
 Phase 18 is paid for by the point update on the card, which cut the
 replays' read-backs to their scoring commits and argmins; every earlier
-depth stays as it was.
+depth stays as it was.  The replays queue their point updates and
+cached-bit writes in the point-update journal and flush it before each
+read of the card's state, so a replay launches ``point_update`` about
+once a read-back and ``lane_scatter`` never (``drive`` checks the
+latter).
 
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
@@ -309,9 +315,10 @@ def ranking_inputs(n: int, density, seed: int):
 
 
 RANK_NS = (1, 100, 1025, N_DEPLOY, 1_000_003)   # fig2's table is N = 100
-# the kernels a replay's kernel run must launch: every engine's writes and
-# point updates, and its scoring (eq. 16's victim order, or its argmin)
-REPLAY_RUN = ("lane_scatter", "point_update")
+# the kernels a replay's kernel run must launch: every engine's point
+# updates (the journal), and its scoring (eq. 16's victim order, or its
+# argmin); a replay launches no lane scatter (``drive``)
+REPLAY_RUN = ("point_update",)
 EQ16_RUN = ("ranking_victim_order",) + REPLAY_RUN
 ARGMIN_RUN = ("ranking_scores",) + REPLAY_RUN
 RANK_TOPS = (1, TOP, 64)
@@ -455,18 +462,20 @@ SLOT_TABLE = 1 << 19              # phase 11's table
 
 
 def check_point_update(err: dict) -> int:
-    """The point-update kernel against its plain versions, bitwise: L in
-    POINT_LANES over N = 100 and 2^20, one lane over the 2^19-slot table
-    with first touches; GreedyDual and other lanes, masked lanes, lanes
-    not due, estimate_z on and off, a serve repeated at its object (a
-    delayed hit), random states holding inf ``complete_t`` and counts 0
-    and 1.  Launches must equal the parameter blocks."""
+    """The point-update journal's kernel against its plain journal,
+    bitwise, on the CPU test's journals (``bench_kernels.journal_ops``):
+    L in POINT_LANES over N = 100 and 2^20, one lane over the 2^19-slot
+    table with first touches; chains of ops at one point, serves,
+    commits and cached-bit sets interleaved, GreedyDual and other lanes,
+    masked lanes, lanes not due, estimate_z on and off, random states
+    holding inf ``complete_t`` and counts 0 and 1; each journal flushed at
+    three cuts.  Launches must equal the plain journal's blocks."""
     import numpy as np
     import torch
     from repro_torch.core.ranking import EPS
-    from repro_torch.figures.bench_kernels import point_lanes, point_state
+    from repro_torch.figures.bench_kernels import (journal_ops, point_lanes,
+                                                   point_state, push_ops)
     from repro_torch.kernels import point_update as pu
-    rng = np.random.default_rng(17)
     shapes = [(n, lanes, False) for n in (100, N_DEPLOY)
               for lanes in POINT_LANES] + [(SLOT_TABLE, 1, True)]
     cases = 0
@@ -482,34 +491,25 @@ def check_point_update(err: dict) -> int:
             runs.append((pu.PointUpdate(values, flags, *lane, EPS, est,
                                         plain=plain, table=table),
                          [values, flags] + list(table or ())))
-        blocks = -(-lanes // pu.MAX_LANES)
-        for step in range(6):
-            idx = rng.integers(0, n, lanes)
-            if lanes > 1:
-                idx[1] = idx[0]                 # two lanes, one object
-            t = np.float32([rng.uniform(0.0, 60.0)])
-            z = rng.uniform(1e-3, 0.05, lanes).astype(np.float32)
-            size = rng.uniform(1.0, 100.0, lanes).astype(np.float32)
-            clock = rng.uniform(0.0, 5.0, lanes).astype(np.float32)
-            active = rng.random(lanes) < 0.7
-            due = rng.random(lanes) < 0.6
-            fresh = ((int(rng.integers(0, 1 << 30)), np.float32(0.02))
-                     if slot and step % 2 == 0 else None)
-            t2 = t + np.float32(0.003)
+        ops = journal_ops(np.random.default_rng(17 + seed), lanes, n,
+                          120 if lanes > 5 else 60, slot=slot, p_hot=0.5)
+        for lo, hi in ((0, 1), (1, len(ops) // 2), (len(ops) // 2,
+                                                   len(ops))):
+            before = pu.launches["point_update"]
+            blocks = [p.n_blocks for p, _ in runs]
             for p, _ in runs:
-                before = pu.launches["point_update"]
-                p.serve(idx, t, z, size, clock, active, fresh)
-                p.serve(idx, t2, z, size, clock)   # a hit or a delayed hit
-                p.commit(idx, due, size, clock)
-                got = pu.launches["point_update"] - before
-                if got != (0 if p.kernel is False else 3 * blocks):
-                    raise AssertionError(f"point_update: {got} launches "
-                                         f"for {3 * blocks} blocks")
+                push_ops(p, ops[lo:hi])
+                p.flush()
+            got = pu.launches["point_update"] - before
+            want = [p.n_blocks - b for (p, _), b in zip(runs, blocks)]
+            if not 1 <= got == want[0] == want[1]:
+                raise AssertionError(f"point_update: {got} launches for "
+                                     f"{want} blocks (kernel, plain)")
             for a, b in zip(runs[0][1], runs[1][1]):
                 if not bitwise_equal(a, b):
                     raise AssertionError(
                         f"point_update != plain at N={n} L={lanes} "
-                        f"slot={slot} step {step}")
+                        f"slot={slot} ops {lo}:{hi}")
             cases += 1
         del runs
         torch.cuda.empty_cache()
@@ -579,8 +579,9 @@ def phase_kernels() -> dict:
         f"rows; masked or not; set, add or both; elements written twice "
         f"or not), one launch a block")
     point_cases = check_point_update(err)
-    log(f"phase 1: point_update (serve, serve again, commit) bitwise equal "
-        f"to plain over {point_cases} steps (L {'/'.join(map(str, POINT_LANES))}"
+    log(f"phase 1: point_update journal (serves, commits, cached-bit sets, "
+        f"chains at one point) bitwise equal to the plain journal over "
+        f"{point_cases} flushes (L {'/'.join(map(str, POINT_LANES))}"
         f" at N = 100 and 2^20, one lane over {SLOT_TABLE} slots with first "
         f"touches; GreedyDual lanes, masked lanes, lanes not due, "
         f"estimate_z on and off), one launch a parameter block")
@@ -601,18 +602,14 @@ def phase_kernels() -> dict:
                 f"block {r['param32k_us']:.2f} us; one batch call "
                 f"{r['host_call_us']:.2f} us on the host clock (packing + "
                 f"launch, 1000 calls)")
-        if r["name"] == "point_update":
-            log(f"phase 1: point_update commit at N={r['n']}: "
-                f"{r['commit_us']:.2f} us/launch, plain "
-                f"{r['plain_commit_us']:.2f} us")
-        if "round_trip_us" in r:
-            log(f"phase 1: point_update serve at {r['shape']}: one call "
-                f"{r['host_call_us']:.2f} us on the host clock (packing + "
-                f"launch, 1000 calls) against the round trip it replaced "
-                f"(read back, host arithmetic, lane_scatter_batch) "
-                f"{r['round_trip_us']:.2f} us")
+        if "append_us" in r:
+            log(f"phase 1: point_update journal at {r['shape']}: "
+                f"{r['append_us']:.2f} us of host an appended op (the mixed "
+                f"journal), {r['serve_append_us']:.2f} us an engine serve, "
+                f"{r['flush_host_us']:.2f} us a flush call of 4 ops, on "
+                f"the host clock")
     return {r["name"]: kernel_entry(r, err[r["name"]]) for r in rows
-            if r["n"] == N_DEPLOY}
+            if r["n"] == N_DEPLOY and r.get("main", True)}
 
 
 def kernel_entry(row: dict, max_abs_err: float) -> dict:
@@ -632,15 +629,20 @@ def same_result(a, b) -> bool:
 def drive(label, fn, needs=()):
     """One run of a path from zeroed launch counts; ``needs`` names the
     kernels the run must launch (an empty tuple: the run must launch
-    none).  Returns the path's output, its counters and its launch
+    none; a replay, which needs ``point_update``, must launch no
+    ``lane_scatter``).  Logs its rate, syncs a request, launches and the
+    ops its point-update flushes applied (mean, 99th percentile,
+    largest).  Returns the path's output, its counters and its launch
     counts."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.profile_replay import flush_sizes, flush_summary
     counts = {}
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn(counts)
+    with flush_sizes() as sizes:
+        out = fn(counts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     lc = launch_counts()
@@ -652,10 +654,14 @@ def drive(label, fn, needs=()):
         f"{counts['scoring_commits']} scoring commits, "
         f"{lc['lane_scatter'] / counts['requests']:.3f} lane_scatter and "
         f"{lc['point_update'] / counts['requests']:.3f} point_update "
-        f"launches/request, launches {lc}")
+        f"launches/request, launches {lc}"
+        + (f", ops a flush {flush_summary(sizes)}" if sizes else ""))
     for k in needs:
         if lc[k] <= 0:
             raise AssertionError(f"{label} did not launch {k}")
+    if "point_update" in needs and lc["lane_scatter"]:
+        raise AssertionError(f"{label}: a replay launched lane_scatter "
+                             f"({lc['lane_scatter']} times)")
     if not needs and any(lc.values()):
         raise AssertionError(f"{label} launched kernels: {lc}")
     return out, counts, lc

@@ -23,8 +23,8 @@ fetch times and an ``[L]`` active mask for that: a masked lane keeps its
 point and its counters.
 
 Both tiers score through the policies' epilogues, as the reference's
-hierarchy does; ``use_kernel`` chooses only the writes
-(``lane_scatter_batch``, or its plain version).
+hierarchy does; ``use_kernel`` chooses only the writes (the point-update
+journal's kernel, or its plain version).
 
 Randomness (origin draws, hop draws, random routing) is pre-drawn into
 :class:`HierTrace`, so a grid and its single runs see the same inputs.
@@ -286,8 +286,9 @@ def run_hier(hier: _Hier, cols, hop_table: np.ndarray,
 
 def plain_writes_of(use_kernel, dev) -> bool:
     """``use_kernel`` for the hierarchy, which scores through the
-    epilogues: None or True writes through ``lane_scatter_batch`` (its
-    plain version on the CPU), 'ref' or False through the plain version."""
+    epilogues: None or True writes through the point-update journal's
+    kernel (its plain version on the CPU), 'ref' or False through the plain
+    version."""
     return resolve_score_mode(use_kernel, dev) != "kernel"
 
 

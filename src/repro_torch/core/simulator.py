@@ -15,11 +15,13 @@ is not admitted.
 Where the work runs:
 
 - The per-object state (``[L, N]`` per field) lives on the device.  Every
-  point update (a serve at object i, a commit at object j) is one launch
-  of the point-update kernel (:mod:`repro_torch.kernels.point_update`),
-  which does the field arithmetic on the card at one object a lane; its
-  indices, times and clocks ride in the kernel's parameters.  A serve or
-  a commit reads nothing back.
+  point update (a serve at object i, a commit at object j, a ``cached``
+  write of an eviction or an admission) is an op of the point-update
+  journal (:mod:`repro_torch.kernels.point_update`): the host queues it,
+  and before the next read of the state (a scoring pass, an argmin, a
+  time shift, the results) one launch does the field arithmetic of every
+  queued op on the card, in order; the ops ride in the kernel's
+  parameters.  A serve or a commit reads nothing back.
 - The host keeps what its decisions read: a mirror of the ``cached`` and
   ``in_flight`` bits and of ``complete_t`` for every lane and object,
   written by the same decisions that write the card (the serve's miss,
@@ -73,7 +75,6 @@ import torch
 from .._device import resolve_device
 from ..kernels import ranking_score as _rs
 from ..kernels import ref as _ref
-from ..kernels.lane_scatter import lane_scatter_batch
 from ..kernels.point_update import PointUpdate
 from . import prng
 from .distributions import Exponential
@@ -93,8 +94,7 @@ EVICT_TOP = 8
 #   'kernel' the eq.-16 CUDA kernels for the paper's policy (their plain
 #            versions when the state lies on the CPU)
 #   'ref'    the plain PyTorch versions of every kernel (the eq.-16
-#            scoring, the point updates and the lane-scatter writes), on
-#            any device
+#            scoring and the point updates), on any device
 _SCORE_MODES = ("rank", "kernel", "ref")
 
 _F = np.float32
@@ -181,8 +181,6 @@ class _Engine:
         self.mode = score_mode
         if plain_writes is None:
             plain_writes = score_mode == "ref"
-        self._lane_write = (_ref.lane_scatter_batch_ref if plain_writes
-                            else lane_scatter_batch)
         # the ids that break ties in the per-eviction argmin: None is the
         # position (the dense state); the slot engine sets its key_tab
         self.ids = None
@@ -208,7 +206,6 @@ class _Engine:
         self.m_bits = np.zeros((2, self.L, self.n), bool)
         self.m_ct = np.full((self.L, self.n), np.inf, np.float32)
         self._lane_ids = np.arange(self.L)
-        self._bit_rows = {v: np.full(self.L, v) for v in (False, True)}
         # host scalars: numpy views of the state's [L] CPU tensors
         self.free = st.free.numpy()
         self.gd_clock = st.gd_clock.numpy()
@@ -245,19 +242,12 @@ class _Engine:
         self.syncs += 1
         return t.cpu().numpy()
 
-    def _scatter(self, writes):
-        """Lane-scatter writes ``(x [R, N], idx [R], val [R], valid [R] or
-        None, add)`` with host operands, in list order: one
-        ``lane_scatter_batch`` call (one launch on the card)."""
-        self._lane_write(writes)
-
-    def _set_cached(self, lanes_mask, idx, value: bool) -> list:
+    def _set_cached(self, lanes_mask, idx, value: bool) -> None:
         """The ``cached`` write of ``idx[l]`` on the masked lanes, to the
-        mirror now and to the card in the returned batch entry."""
+        mirror now and to the card's journal."""
         lanes = self._lane_ids[lanes_mask]
         self.m_bits[0, lanes, idx[lanes]] = value
-        return [(self.cached, idx, self._bit_rows[value], lanes_mask,
-                 False)]
+        self._point.set_cached(idx, lanes_mask, value)
 
     # --- scoring ----------------------------------------------------------
     def _kernelable(self, li: int) -> bool:
@@ -350,8 +340,9 @@ class _Engine:
         t_c = self.m_ct[self._lane_ids, j]
         s_j = self.sizes_np[j]
 
-        # --- finalize the miss episode on the card: its statistics, the
-        # z_est EMA and the GreedyDual refresh at the exact completion time
+        # --- finalize the miss episode (queued for the card): its
+        # statistics, the z_est EMA and the GreedyDual refresh at the exact
+        # completion time
         self._point.commit(j, due, s_j, self.gd_clock)
         self.m_bits[1, lanes, j[lanes]] = False
         self.m_ct[lanes, j[lanes]] = _INF
@@ -373,6 +364,7 @@ class _Engine:
         o_val = np.zeros((L, top), np.float32)
         if gate.any():
             self.scored += 1
+            self._point.flush()
             ranks, order, packed = self._select(np.flatnonzero(gate), t_c,
                                                 j, top)
             back = self._read(packed)
@@ -386,7 +378,6 @@ class _Engine:
         clock = self.gd_clock.copy()
         nev = self.n_evictions.copy()
         ok = admit_ok.copy()
-        evictions = []
 
         def evict(act, v, vv):
             nonlocal free, clock, nev, ok
@@ -406,7 +397,7 @@ class _Engine:
             v = o_idx[:, k]
             e = evict(act, v, o_val[:, k])
             if e.any():
-                evictions += self._set_cached(e, v, False)
+                self._set_cached(e, v, False)
 
         # phase 2: per-eviction argmin, when one admission needs more
         # victims than the order holds (rare)
@@ -414,9 +405,7 @@ class _Engine:
             act = due & ok & (free < s_j)
             if not act.any():
                 break
-            if evictions:
-                self._scatter(evictions)
-                evictions = []
+            self._point.flush()
             lanes = np.flatnonzero(act)
             self.argmins += 1
             back = self._read(torch.stack([
@@ -428,14 +417,12 @@ class _Engine:
             vv[lanes] = back[:, 1].view(np.float32)
             e = evict(act, v, vv)
             if e.any():
-                evictions += self._set_cached(e, v, False)
+                self._set_cached(e, v, False)
 
         # --- admission --------------------------------------------------------
         do_admit = due & admit_ok & ok & (free >= s_j)
         if do_admit.any():
-            evictions += self._set_cached(do_admit, j, True)
-        if evictions:
-            self._scatter(evictions)
+            self._set_cached(do_admit, j, True)
         free = np.where(do_admit, free - s_j, free)
 
         self.free[:] = np.where(due, free, self.free)
@@ -460,9 +447,9 @@ class _Engine:
         ``active`` (bool ``[L]``) gates the serve per lane: a masked lane
         keeps its point and its scalars, and its latency is computed all
         the same (the hierarchy reads it).  ``fresh`` is a slot table's
-        first touch (:meth:`_SlotEngine._locate`), written in the serve's
-        launch.  The latency branch reads the mirror; the fields are
-        updated on the card."""
+        first touch (:meth:`_SlotEngine._locate`), written by the serve's
+        op.  The latency branch reads the mirror; the fields are updated on
+        the card, from the journal."""
         b = self.m_bits[:, :, i].copy()
         is_hit, is_delayed = b[0], b[1]
         is_miss = ~(is_hit | is_delayed)
@@ -522,6 +509,7 @@ class _Engine:
         may round to one)."""
         if delta == 0:
             return
+        self._point.flush()
         shift_times(self.st, float(delta))
         self.m_ct -= delta
         for li, h in enumerate(self.heaps):
@@ -530,6 +518,7 @@ class _Engine:
             heapq.heapify(self.heaps[li])
 
     def result(self) -> list[SimResult]:
+        self._point.flush()
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         s = self.st
@@ -552,7 +541,7 @@ class _SlotEngine(_Engine):
     Only the host inserts, so the probe table is the host array
     ``key_np``; the card holds ``key_tab`` for the id tie-break of the
     per-eviction argmin and the per-slot sizes for the scoring pass, both
-    written by the first touch's serve launch, which also starts the slot
+    written by the first touch's serve op, which also starts the slot
     from the first-touch fields.  The host heap holds ``(complete_t,
     object id, slot)``: commits pop in completion order with ties broken
     by object id, as the dense engine's do, and the mirror's ``in_flight``
@@ -597,7 +586,7 @@ class _SlotEngine(_Engine):
 
     def _locate(self, obj: int):
         """``(slot, fresh)``: the object's slot, and on a first touch the
-        ``(id, z prior)`` its serve launch starts the slot from."""
+        ``(id, z prior)`` its serve op starts the slot from."""
         n = self.n
         s = home = int(slot_home(obj, self.tab.seed, n))
         for _ in range(n):
@@ -611,7 +600,7 @@ class _SlotEngine(_Engine):
             s = self._reclaim(home)
         self.key_np[s] = obj
         self.sizes_np[s] = self.sizes_full[obj]
-        # the slot's first-touch bits and complete_t, as the launch writes
+        # the slot's first-touch bits and complete_t, as the serve op writes
         self.m_bits[:, 0, s] = False
         self.m_ct[0, s] = _INF
         return s, (obj, self.z_prior[obj])

@@ -5,9 +5,9 @@ Every per-object field is an ``[L, N]`` tensor: ``L`` lanes (independent
 simulations that share one trace, e.g. a policy and its LRU baseline) over a
 universe of ``N`` objects.  The twelve f32 fields are views into one
 ``values [12, L, N]`` tensor and the two bool fields into one
-``flags [2, L, N]`` tensor, so a point update of every field of every lane
-is one launch of the lane-scatter kernel over the ``[12 * L, N]`` view
-(:mod:`repro_torch.kernels.lane_scatter`).
+``flags [2, L, N]`` tensor, so the point updates of every field of every
+lane are one launch of the point-update journal's kernel
+(:mod:`repro_torch.kernels.point_update`).
 
 The per-lane scalars (free capacity, clocks, Kahan sums, counters) are f32
 ``[L]`` tensors on the host: the simulator's control flow reads them every

@@ -17,9 +17,10 @@ On the CPU (``device="cpu"``) the wrappers run their plain versions, so
 only ``plain_us`` and ``library_us`` are measured (host clock), at small
 shapes, and ``us`` is None.
 
-Shapes on the card: the ranking kernels, the serve's lane-scatter write
-and the point update's serve and commit at N = 100 (fig2's table) and 2^20
-(the deployment table); the attention
+Shapes on the card: the ranking kernels and the serve's lane-scatter
+write at N = 100 (fig2's table) and 2^20 (the deployment table), the
+point-update journal's flush of 1, 4, 16 and 256 ops over 1 and 18 lanes
+at both; the attention
 kernels at StableLM-2-1.6B's (B 1, 32 heads of 64, 2048 tokens) and
 Hymba-1.5B's shapes (25 q / 5 KV heads of 64, window 1024, a 128-token
 sink); ``gla_chunk`` at xLSTM-350M's and Hymba-1.5B's prefill, bf16.
@@ -227,72 +228,200 @@ def point_lanes(lanes: int, seed: int):
             rng.choice(np.float32([0.01, 0.1, 0.5]), lanes))
 
 
+def journal_ops(rng, lanes: int, n: int, n_ops: int, slot: bool = False,
+                hot: int = 3, p_hot: float = 0.7, masks: bool = True) -> list:
+    """A random journal of ``n_ops`` point-update ops for ``lanes`` lanes
+    over ``n`` objects, as ``(kind, args)`` for :func:`push_ops`: serves
+    (one object for every lane or one a lane; z and size one or one a
+    lane; masked lanes or none; on a slot table, first touches), commits
+    (lanes not due) and cached-bit sets (lanes left out), at one of
+    ``hot`` objects with probability ``p_hot`` (chains of ops at one
+    point) and anywhere else otherwise; ``masks=False`` leaves no lane
+    out."""
+    hot_objs = rng.integers(0, n, hot)
+    pick = lambda k: np.where(rng.random(k) < p_hot,
+                              rng.choice(hot_objs, k), rng.integers(0, n, k))
+    f32 = lambda lo, hi, k=None: (np.float32(rng.uniform(lo, hi)) if k is None
+                                  else rng.uniform(lo, hi, k).astype(
+                                      np.float32))
+    some = lambda: (rng.random(lanes) < 0.7 if masks
+                    else np.ones(lanes, bool))
+    t = f32(0.0, 40.0)
+    ops = []
+    for _ in range(n_ops):
+        t = np.float32(t + f32(0.0, 0.01))
+        idx = pick(lanes).astype(np.int64)
+        clock = f32(0.0, 5.0, lanes)
+        u = rng.random()
+        if u < 0.5:
+            one = rng.random() < 0.5
+            ops.append(("serve", (
+                int(idx[0]) if one else idx, np.float32([t]),
+                np.float32([f32(1e-3, 0.05)]) if rng.random() < 0.5
+                else f32(1e-3, 0.05, lanes),
+                f32(1.0, 100.0) if rng.random() < 0.5
+                else f32(1.0, 100.0, lanes), clock,
+                None if rng.random() < 0.6 or not masks else some(),
+                (int(rng.integers(0, 1 << 30)), f32(1e-3, 0.05))
+                if slot and rng.random() < 0.3 else None)))
+        elif u < 0.75:
+            ops.append(("commit", (idx, some(),
+                                   f32(1.0, 100.0, lanes), clock)))
+        else:
+            ops.append(("set", (idx, some(),
+                                bool(rng.random() < 0.5))))
+    return ops
+
+
+def push_ops(pu, ops) -> None:
+    """Queue ``ops`` (:func:`journal_ops`) on a ``PointUpdate``."""
+    for kind, a in ops:
+        if kind == "serve":
+            pu.serve(*a)
+        elif kind == "commit":
+            pu.commit(*a)
+        else:
+            pu.set_cached(*a)
+
+
+# The state rows an op reads and writes at its point, in any branch: f32
+# fields 0-11 (kernels.ref's CT ... GH), then the flags cached (12) and
+# in_flight (13); ``gd`` is a GreedyDual lane's extra, ``ez`` the z
+# estimate's (estimate_z on).
+CT, IT, LA, FA, GM, CNT, ZE, AS, AQ, AC, EP, GH, CACHED, IN_FLIGHT = \
+    range(14)
+POINT_ROWS = {
+    "serve": dict(reads={CACHED, IN_FLIGHT, CT, EP, LA, GM, CNT},
+                  writes={CT, IT, EP, GM, FA, LA, CNT, CACHED, IN_FLIGHT},
+                  gd_reads={AS, AC, ZE}, gd_writes={GH}),
+    "commit": dict(reads={EP, AS, AQ, AC},
+                   writes={AS, AQ, AC, EP, CT, IN_FLIGHT},
+                   gd_reads={ZE, GM, CNT}, gd_writes={GH},
+                   ez_reads={CT, IT, ZE}, ez_writes={ZE}),
+    "set": dict(reads=set(), writes={CACHED})}
+
+
+def journal_bytes(ops, gd, estimate_z: bool) -> tuple[int, int]:
+    """``(points, bytes)``: the distinct (lane, object) points that a
+    journal's ops (:func:`journal_ops`) touch on lanes with GreedyDual
+    flags ``gd`` (bool [L]), and the bytes the state must move for them:
+    at each point the rows (4 B a field, 1 B a flag) that its ops read
+    before an earlier op there wrote them, and every row they write
+    (:data:`POINT_ROWS`); a slot table's first touch reads no row, writes
+    all 14 and the slot's key and size (4 B each)."""
+    lanes = len(gd)
+    rows = {}                       # point -> (rows read, rows written)
+    extra = 0
+    for kind, a in ops:
+        idx = np.broadcast_to(np.asarray(a[0]), (lanes,))
+        on = (np.ones(lanes, bool) if kind == "serve" and a[5] is None
+              else a[5] if kind == "serve" else a[1])
+        fresh = kind == "serve" and a[6] is not None
+        use = POINT_ROWS[kind]
+        for lane in np.flatnonzero(on).tolist():
+            read, wrote = rows.setdefault((lane, int(idx[lane])),
+                                          (set(), set()))
+            if fresh:
+                wrote.update(range(14))
+                extra += 8
+                continue
+            r, w = set(use["reads"]), set(use["writes"])
+            if gd[lane]:
+                r |= use.get("gd_reads", set())
+                w |= use.get("gd_writes", set())
+            if estimate_z:
+                r |= use.get("ez_reads", set())
+                w |= use.get("ez_writes", set())
+            read |= r - wrote
+            wrote |= w
+    size = lambda rs: sum(1 if x >= CACHED else 4 for x in rs)
+    return len(rows), extra + sum(size(r) + size(w)
+                                  for r, w in rows.values())
+
+
+JOURNAL_KS = (1, 4, 7, 16, 256)   # ops a flush, timed
+JOURNAL_LANES = (1, 18)           # one-lane replays; the 18-lane grid
+# The kernels line's flush: the replays' mean flush holds 5.5-7.6 ops
+# (chip_smoke.py phases 2, 3, 11 and 12(b); 99th percentile 16-35)
+MAIN_K = 7
+
+
 def time_point_update(dev, sizes=(100, N_DEPLOY), reps=100) -> list[dict]:
-    """One serve and one commit launch of the point-update kernel at L = 1
-    over each N of ``sizes``, beside their plain versions; at the largest
-    N also one launch's host cost and the round trip it replaced (the
-    fields at the object read back, the new values computed on the host,
-    written with one ``lane_scatter_batch``), on the host clock."""
+    """One flush of a journal of K ops (:data:`JOURNAL_KS`: random
+    serves, commits and cached-bit sets at random objects) over L lanes
+    (:data:`JOURNAL_LANES`) at each N of ``sizes``, kernel beside plain
+    version; on the card also the host cost of an appended op (the mixed
+    journal's, and the engine's common serve: one object, one z, no mask)
+    and of a flush call.  The row at L = 1, K = :data:`MAIN_K` and the
+    largest N is ``main``.  Each timed call appends its K ops and
+    flushes; the appends stay ahead of the card behind :func:`time_ms`'s
+    sleep kernel (fewer calls at large K), so the events time the
+    launches alone."""
     from ..core.ranking import EPS
-    from ..kernels import ref
-    from ..kernels.lane_scatter import lane_scatter_batch
     from ..kernels.point_update import PointUpdate
-    # 12 f32 fields and 2 flags read and written at one object
-    bound = 2 * (12 * 4 + 2) / HBM_BYTES_PER_S * 1e3
-    how = "one lane: 12 f32 fields + 2 bool flags read and written"
     rows = []
     for n in sizes:
-        values, flags = point_state(1, n, 11, dev)
-        gd, gd_rate, cold, alpha = point_lanes(1, 11)
-        lane = (gd, gd_rate, cold, alpha)
-        kern = PointUpdate(values, flags, *lane, EPS, True)
-        plain = PointUpdate(values, flags, *lane, EPS, True, plain=True)
-        i = n // 3
-        t, z = np.float32([30.0]), np.float32([0.01])
-        size, clock = np.float32([7.0]), np.float32([1.5])
-        due = np.ones(1, bool)
-        serve = lambda pu: pu.serve(i, t, z, size, clock)
-        commit = lambda pu: pu.commit(np.array([i]), due, size, clock)
-        extra = {}
-        if n == max(sizes) and dev.type == "cuda":
-            plane = plain.lane
-
-            def round_trip():
-                a = torch.cat([values[:, :, i], flags[:, :, i].float()]) \
-                    .cpu()
-                g, b = a[:12].reshape(12, 1, 1).clone(), \
-                    (a[12:] > 0.5).reshape(2, 1, 1)
-                ref.point_serve_ref(
-                    g, b, torch.zeros(1, dtype=torch.int64),
-                    torch.tensor(t[0]), torch.from_numpy(z),
-                    torch.from_numpy(size), torch.from_numpy(clock),
-                    tuple(x.cpu() if isinstance(x, torch.Tensor) else x
-                          for x in plane))
-                lane_scatter_batch([
-                    (values.view(12, n), np.full(12, i), g.numpy().ravel(),
-                     None, False),
-                    (flags.view(2, n), np.full(2, i), b.numpy().ravel(),
-                     None, False)])
-
-            def host_us(fn, k=1000):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(k):
-                    fn()
-                torch.cuda.synchronize()
-                return (time.perf_counter() - t0) / k * 1e6
-
-            extra = dict(host_call_us=host_us(lambda: serve(kern)),
-                         round_trip_us=host_us(round_trip, 300))
-        rows.append(_row(
-            "point_update", f"serve, L=1, N={n}", dev,
-            _kernel_ms(dev, lambda: serve(kern), reps),
-            time_ms(lambda: serve(plain), reps, dev), bound, "bytes", how,
-            n=n, commit_us=None if dev.type != "cuda"
-            else time_ms(lambda: commit(kern), reps, dev) * 1e3,
-            plain_commit_us=time_ms(lambda: commit(plain), reps, dev) * 1e3,
-            **extra))
+        for lanes in JOURNAL_LANES:
+            values, flags = point_state(lanes, n, 11, dev)
+            lane = point_lanes(lanes, 11)
+            kern = PointUpdate(values, flags, *lane, EPS, True)
+            plain = PointUpdate(values, flags, *lane, EPS, True, plain=True)
+            for k in JOURNAL_KS:
+                ops = journal_ops(np.random.default_rng(k), lanes, n, k,
+                                  p_hot=0.0, masks=False)
+                pts, nbytes = journal_bytes(ops, lane[0], True)
+                push_ops(plain, ops)
+                block = plain.pending_bytes
+                plain.flush()
+                flush = lambda pu: (push_ops(pu, ops), pu.flush())
+                extra = {}
+                if dev.type == "cuda" and k == max(JOURNAL_KS):
+                    extra = _journal_host_us(kern, ops, lanes)
+                rows.append(_row(
+                    "point_update", f"flush of K={k} ops, L={lanes}, N={n}",
+                    dev, _kernel_ms(dev, lambda: flush(kern),
+                                    min(reps, max(10, 400 // k))),
+                    time_ms(lambda: flush(plain), max(3, reps // k), dev),
+                    (nbytes + block + 16 * lanes) / HBM_BYTES_PER_S * 1e3,
+                    "bytes", f"{pts} touched points: {nbytes} B of their "
+                    f"fields and flags (journal_bytes), {block} B of "
+                    f"parameter block, {16 * lanes} B of lane constants, "
+                    f"at 3.35 TB/s", n=n, lanes=lanes, ops=k, points=pts,
+                    main=(lanes == 1 and k == MAIN_K and n == max(sizes)),
+                    **extra))
     return rows
+
+
+def _journal_host_us(pu, ops, lanes: int, rounds: int = 20) -> dict:
+    """Host microseconds an appended op (``ops``, and the engine's common
+    serve) and a flush call, on the host clock, the card synchronised
+    between rounds."""
+    def clock(fn):
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+            pu.flush()
+        return best * 1e6
+    t, z = np.float32([30.0]), np.float32([0.01])
+    size, gd_clock = np.float32(7.0), np.zeros(lanes, np.float32)
+    serves = lambda: [pu.serve(5, t, z, size, gd_clock) for _ in range(64)]
+    pu.flush()
+    mixed = clock(lambda: push_ops(pu, ops)) / len(ops)
+    serve = clock(serves) / 64
+
+    def one_flush():
+        push_ops(pu, ops[:4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pu.flush()
+        return time.perf_counter() - t0
+    torch.cuda.synchronize()
+    flush_us = min(one_flush() for _ in range(rounds)) * 1e6
+    return dict(append_us=mixed, serve_append_us=serve,
+                flush_host_us=flush_us)
 
 
 def attention_bound(q, k, q_pos, k_pos, kw):

@@ -2,7 +2,7 @@
 
 - :mod:`ranking_score`    eq.-16 scores + victim selection (``csrc/ranking_score.cu``)
 - :mod:`lane_scatter`     per-lane point writes into ``[L, N]`` state; a batch of them in one launch (``csrc/lane_scatter.cu``)
-- :mod:`point_update`     the replay's serve and commit arithmetic at one object a lane (``csrc/point_update.cu``)
+- :mod:`point_update`     the replay's serves, commits and cached-bit writes at one object a lane, queued and applied in one launch a flush (``csrc/point_update.cu``)
 - :mod:`flash_attention`  prefill attention (``csrc/flash_attention.cu``)
 - :mod:`decode_attention` one-token attention over a KV cache (``csrc/decode_attention.cu``)
 - :mod:`gla_chunk`        chunked gated linear attention for mLSTM / Mamba heads (``csrc/gla_chunk.cu``)

@@ -39,8 +39,7 @@ SIGNATURES = {
         "lane_scatter_batch": [_P, _INT, _P],
     },
     "point_update": {
-        "point_serve": [_P, _INT, _P],
-        "point_commit": [_P, _INT, _P],
+        "point_journal": [_P, _INT, _P, _INT, _P],
     },
     "flash_attention": {
         "flash_attention": [_P] * 6 + [_INT] * 6 + [_I64] * 9

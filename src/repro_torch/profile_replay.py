@@ -15,15 +15,17 @@ replays a window of requests and prints one JSON line per cell with:
 
 - wall seconds and requests per second (host clock, ending in a sync),
   device syncs and kernel launches per request (and, for the grid,
-  lane-requests per second and syncs per lane-request);
+  lane-requests per second and syncs per lane-request), and the ops a
+  point-update flush applies (mean, 99th percentile, largest);
 - device busy seconds: the sum of CUDA kernel and memcpy time in a
   ``torch.profiler`` trace of a second replay of the same window, and the
   idle share ``1 - busy / wall`` against the unprofiled wall time;
-- host seconds inside the replay engine's parts (point_serve and
-  point_commit = packing + the point-update launch, scatter = packing +
-  the eviction and admission lane-scatter launch, select = the scoring
-  pass + victim order, read = the read-backs, rest = host control flow
-  and the mirror), or the prefix
+- host seconds inside the replay engine's parts (journal = appending
+  the serves, commits and cached-bit writes to the point-update journal,
+  a block's launch when one fills; flush = the journal's launch before
+  each read of the card and at the results; select = the scoring pass +
+  victim order, read = the read-backs, rest = host control flow and the
+  mirror), or the prefix
   cache's (flush = the mirror's lane-scatter batch, ranks = the
   substrate + the rank's launches, victims = the read-back, rest = the
   event loop), from wrappers around their methods; they include the time
@@ -35,6 +37,7 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,13 +57,42 @@ def _timed(cls, name, label, acc):
     return fn
 
 
+@contextlib.contextmanager
+def flush_sizes():
+    """Within the block, the ops that each flush of a point-update journal
+    with ops queued applies, in the list it yields."""
+    from .kernels.point_update import PointUpdate
+    sizes, flush = [], PointUpdate.flush
+
+    def counted(self):
+        if self.pending:
+            sizes.append(self.pending)
+        flush(self)
+    PointUpdate.flush = counted
+    try:
+        yield sizes
+    finally:
+        PointUpdate.flush = flush
+
+
+def flush_summary(sizes) -> dict:
+    """Mean, 99th percentile and largest of :func:`flush_sizes`' list."""
+    import numpy as np
+    if not sizes:
+        return {"flushes": 0}
+    a = np.asarray(sizes)
+    return {"flushes": len(a), "mean": float(a.mean()),
+            "p99": float(np.percentile(a, 99)), "max": int(a.max())}
+
+
 def replay_parts():
     """The replay engine's timed parts: ``(class, method, label)``."""
     from .core.simulator import _Engine
     from .kernels.point_update import PointUpdate
-    return [(PointUpdate, "serve", "point_serve"),
-            (PointUpdate, "commit", "point_commit"),
-            (_Engine, "_scatter", "scatter"), (_Engine, "_select", "select"),
+    return [(PointUpdate, "serve", "journal"),
+            (PointUpdate, "commit", "journal"),
+            (PointUpdate, "set_cached", "journal"),
+            (PointUpdate, "flush", "flush"), (_Engine, "_select", "select"),
             (_Engine, "_read", "read")]
 
 
@@ -93,7 +125,8 @@ def profile_cell(label, run, parts=None, nested=False):
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        counts = run()
+        with flush_sizes() as sizes:
+            counts = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = launch_counts()
@@ -123,6 +156,7 @@ def profile_cell(label, run, parts=None, nested=False):
            "launches_per_request": {
                k: v / counts["requests"]
                for k, v in launched.items() if v},
+           "ops_per_flush": flush_summary(sizes),
            "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
            "host_s": host,
            "top_device_ops": [{"op": k, "s": s, "count": c}

@@ -304,9 +304,11 @@ def test_point_update_wrapper_splits_lanes_and_masks():
                   clock[li:li + 1], active[li:li + 1])
         one.commit(idx[li:li + 1], due[li:li + 1], size[li:li + 1],
                    clock[li:li + 1])
+        one.flush()
     pu_all = pu.PointUpdate(values, flags, *lane, EPS, True)
     pu_all.serve(idx, t, z, size, clock, active)
     pu_all.commit(idx, due, size, clock)
+    pu_all.flush()
     np.testing.assert_array_equal(values.numpy().view(np.int32),
                                   want_v.numpy().view(np.int32))
     np.testing.assert_array_equal(flags.numpy(), want_b.numpy())
@@ -320,6 +322,7 @@ def test_mirror_equals_the_state_after_every_request(case, monkeypatch):
 
     def checking(self, *a, **k):
         lat = serve(self, *a, **k)
+        self._point.flush()
         np.testing.assert_array_equal(self.m_bits, self.st.flags.numpy())
         np.testing.assert_array_equal(
             self.m_ct.view(np.int32),

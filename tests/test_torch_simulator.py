@@ -237,22 +237,30 @@ def test_counters_report_syncs():
 @pytest.mark.parametrize("fn", ["simulate", "latency_improvement"])
 @pytest.mark.parametrize("use_kernel", [True, "ref"])
 def test_engine_scatter_is_one_batch_call(fn, use_kernel, monkeypatch):
-    """Each ``_Engine._scatter`` hands its whole list of writes to one
-    ``lane_scatter_batch`` call (``"ref"`` to its plain version instead):
-    at most one a commit, for its evictions and admission (the point
-    updates are the point-update kernel's).  On the CPU nothing
-    launches."""
-    from repro_torch.core import simulator
+    """The engine's cached-bit writes (evictions, admissions) are ops of
+    the point-update journal beside its serves and commits, not
+    ``lane_scatter_batch`` calls: each flush hands everything queued since
+    the last device read to one block (one launch on the card), one flush
+    a read-back plus one for the results.  On the CPU nothing launches."""
     from repro_torch.kernels import lane_scatter as ls
     from repro_torch.kernels import launch_counts
-    batches = []
-    orig = simulator._Engine._scatter
+    from repro_torch.kernels import point_update as pu
+    flushes, sets = [], []
+    flush, set_cached = pu.PointUpdate.flush, pu.PointUpdate.set_cached
 
-    def counting(self, writes):
-        batches.append(len(writes))
-        return orig(self, writes)
+    def counting(self):
+        flushes.append(self.pending)
+        blocks = self.n_blocks
+        flush(self)
+        assert self.pending == 0
+        assert self.n_blocks - blocks == (1 if flushes[-1] else 0)
 
-    monkeypatch.setattr(simulator._Engine, "_scatter", counting)
+    def setting(self, *a):
+        sets.append(1)
+        return set_cached(self, *a)
+
+    monkeypatch.setattr(pu.PointUpdate, "flush", counting)
+    monkeypatch.setattr(pu.PointUpdate, "set_cached", setting)
     trace, _ = _reference(True)
     calls0, c = ls.calls["lane_scatter_batch"], {}
     if fn == "simulate":
@@ -262,10 +270,9 @@ def test_engine_scatter_is_one_batch_call(fn, use_kernel, monkeypatch):
         latency_improvement(trace, CAP, "stoch_vacdh", "lru",
                             estimate_z=True, use_kernel=use_kernel,
                             device="cpu", counters=c)
-    calls = ls.calls["lane_scatter_batch"] - calls0
-    assert calls == (len(batches) if use_kernel is True else 0)
-    assert 0 < len(batches) <= c["commits"]
-    assert max(batches) >= 3           # evictions + admission in one call
+    assert ls.calls["lane_scatter_batch"] == calls0
+    assert len(flushes) == c["syncs"] + 1
+    assert 0 < len(sets) and max(flushes) >= 3
     assert launch_counts()["lane_scatter"] == 0
     assert launch_counts()["point_update"] == 0
 

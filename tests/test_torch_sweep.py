@@ -248,6 +248,7 @@ def test_gather_of_different_objects_equals_stacked_reads():
     due = np.array([True, True, True, False, True])
     clock = np.linspace(0.0, 1.0, L, dtype=np.float32)
     eng._point.commit(idx, due, eng.sizes_np[idx], clock)
+    eng._point.flush()
     for lane in range(L):
         one = _Engine(tr.sizes, tr.z_mean, [50.0], (names[lane],),
                       (PolicyParams(),), ((0, 0),), True, "ref", None)
@@ -256,6 +257,10 @@ def test_gather_of_different_objects_equals_stacked_reads():
         j = idx[lane:lane + 1]
         one._point.commit(j, due[lane:lane + 1], one.sizes_np[j],
                           clock[lane:lane + 1])
+        one._point.flush()
+        moved = not torch.equal(eng.st.values[:, lane, idx[lane]],
+                                before[0][:, lane, idx[lane]])
+        assert moved == due[lane], lane
         np.testing.assert_array_equal(
             eng.st.values[:, lane].numpy().view(np.int32),
             one.st.values[:, 0].numpy().view(np.int32))

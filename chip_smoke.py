@@ -201,7 +201,28 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    device and auto-chunk rows, the compaction probe at top_k 1024 / 4096
    / 16,384 and the exact rows through the slot table), every section's
    rows present, its LRU and eq.-16 roster rows again through the plain
-   versions bit for bit.
+   versions bit for bit;
+19. the example modules (``repro_torch.examples``), each ``run()`` through
+   the kernels and through the plain versions on the card: (a)
+   ``quickstart`` at ``EX_QS_REQUESTS`` requests (cut from 30,000) with
+   its Monte-Carlo check at n = 200,000, each moment within 4 standard
+   errors of Theorem 2, eq. 16 through ``ranking_victim_order`` and the
+   Erlang row through the epilogue; (b) ``trace_sim`` on wiki2018 at
+   ``EX_TS_REQUESTS`` (cut from 50,000), its 7 policies; (c)
+   ``hierarchy_sim`` at ``EX_HIER_REQUESTS`` (cut from 30,000), its
+   three hierarchies and its 2 x 4 L2 grid; every counter, latency and
+   grid field of (a)-(c) bit for bit; (d) ``serve_engine``: the smoke
+   StableLM behind the batcher (``flash_attention`` once a layer a
+   prompt, ``decode_attention`` once a layer a decoded token) and the
+   prefix-cache A/B at ``EX_AB_REQUESTS`` (cut from 20,000), every
+   ``EngineStats`` field equal, then phase 5's f32 logits check on two
+   of its prompts; (e) ``train_small`` (lm-100m, bf16) for
+   ``EX_TRAIN_STEPS`` steps (``flash_attention`` once a layer a
+   microbatch), the same run preempted at step 5 and resumed, and the
+   run in f32 through the kernels and the plain versions, losses within
+   atol 1e-5 + rtol 1e-4.  The plain runs of (a)-(c) go in a second
+   process beside the rest of the phase (alone they took 59.7 s of its
+   122.5 s on an H100 80GB HBM3 at 700 W).
 
 Every engine of the replays in this process (phases 2-3, 9-12, 14's
 in-process grids and 18) holds its host mirror (the ``cached`` and
@@ -240,6 +261,11 @@ cached-bit writes in the point-update journal and flush it before each
 read of the card's state, so a replay launches ``point_update`` about
 once a read-back and ``lane_scatter`` never (``drive`` checks the
 latter).
+
+Phase 19 took 95.1 s with its plain replays beside it (122.5 s with them
+after it) and the script 632.0 s on an H100 80GB HBM3 at 700 W, past
+half the limit, so phase 18, the longest host-bound phase (72.0 s),
+runs at half its depth: ``REALWORLD_REQUESTS`` 5,000 -> 2,500.
 
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
@@ -2803,7 +2829,7 @@ def main() -> int:
 
 
 # --- phase 18: fig_realworld ---------------------------------------------------
-REALWORLD_REQUESTS = 5_000    # phase 18's trace, cut from 1,000,000
+REALWORLD_REQUESTS = 2_500    # phase 18's trace, cut from 1,000,000
 
 
 def phase_realworld(launches: dict) -> None:
@@ -2849,6 +2875,305 @@ def phase_realworld(launches: dict) -> None:
             f"hit ratio {r.get('hit_ratio')}, {r['req_per_s']} req/s")
     log(f"phase 18: every section's rows present; roster LRU and eq. 16 "
         f"kernels == plain bitwise")
+
+
+# --- phase 19: the example modules --------------------------------------------
+EX_QS_REQUESTS = 2_500        # quickstart's trace, cut from 30,000
+EX_MC = 200_000               # quickstart's Monte-Carlo draws, its own n
+EX_TS_REQUESTS = 2_000        # trace_sim's surrogate, cut from 50,000
+EX_HIER_REQUESTS = 1_000      # hierarchy_sim's trace, cut from 30,000
+EX_AB_REQUESTS = 2_000        # serve_engine's A/B, cut from 20,000
+EX_TRAIN_STEPS = 10           # train_small, cut from 200; preempted at 5
+EX_SKIP = ("route", "trainer", "where", "wall_s", "tok_s", "first_call_s",
+           "later_tok_s", "tokens_s")
+
+
+def flat_numbers(x, path="") -> dict:
+    """Every number of an example's result (nested dicts, lists, result
+    dataclasses and named tuples; tensors as raw bytes, so equal means bit
+    for bit), by path; host timings, routes and the device's name left
+    out."""
+    import dataclasses
+    import numbers
+    import numpy as np
+    import torch
+    if isinstance(x, dict):
+        items = x.items()
+    elif isinstance(x, (list, tuple)) and not hasattr(x, "_asdict"):
+        items = enumerate(x)
+    elif hasattr(x, "_asdict"):
+        items = x._asdict().items()
+    elif dataclasses.is_dataclass(x):
+        items = ((f.name, getattr(x, f.name)) for f in dataclasses.fields(x))
+    elif isinstance(x, torch.Tensor):
+        return {path: (x.dtype, tuple(x.shape), x.cpu().numpy().tobytes())}
+    elif isinstance(x, np.ndarray):
+        return {path: (x.dtype, x.shape, x.tobytes())}
+    elif isinstance(x, (numbers.Number, str)) or x is None:
+        return {path: x}
+    else:
+        return {path: repr(x)}
+    out = {}
+    for k, v in items:
+        if k not in EX_SKIP:
+            out.update(flat_numbers(v, f"{path}/{k}"))
+    return out
+
+
+def example_replays() -> list:
+    """19(a)-(c): (label, ``run(use_kernel, counters)``, the kernels the
+    kernel run must launch) of each replay example."""
+    from repro_torch.examples import hierarchy_sim, quickstart, trace_sim
+    return [
+        (f"quickstart.run(n_requests={EX_QS_REQUESTS})",
+         lambda mode, c: quickstart.run(use_kernel=mode, counters=c,
+                                        n_mc=EX_MC,
+                                        n_requests=EX_QS_REQUESTS),
+         EQ16_RUN),
+        (f"trace_sim.run(n_requests={EX_TS_REQUESTS})",
+         lambda mode, c: trace_sim.run(use_kernel=mode, counters=c,
+                                       n_requests=EX_TS_REQUESTS),
+         EQ16_RUN),
+        (f"hierarchy_sim.run(n_requests={EX_HIER_REQUESTS})",
+         lambda mode, c: hierarchy_sim.run(use_kernel=mode, counters=c,
+                                           n_requests=EX_HIER_REQUESTS),
+         REPLAY_RUN)]
+
+
+def examples_plain(conn) -> None:
+    """19(a)-(c) through the plain versions, in a process of its own:
+    sends back ("ok", each run's ``flat_numbers``) or ("error", the
+    traceback)."""
+    try:
+        outs = []
+        for label, fn, _ in example_replays():
+            out, _, _ = drive(f"phase 19: {label}(use_kernel='ref')",
+                              lambda c, fn=fn: fn("ref", c))
+            outs.append(flat_numbers(out))
+        conn.send(("ok", outs))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def lm_launches(label: str, fn, want: dict, launches: dict):
+    """An LM run from zeroed counts: it must launch each kernel of
+    ``want`` exactly that many times (a plain run, ``want`` empty,
+    none)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc = launch_counts()
+    log(f"phase 19: {label}: {dt:.2f} s, launches {lc}")
+    for k, n in want.items():
+        if lc[k] != n:
+            raise AssertionError(f"{label} launched {k} {lc[k]} times, "
+                                 f"not {n}")
+    if not want and any(lc.values()):
+        raise AssertionError(f"{label} launched kernels: {lc}")
+    add_launches(launches, {k: lc[k] for k in want})
+    return out, lc
+
+
+def close_losses(label: str, got, want) -> float:
+    """Loss histories within PERF.md's train bound (atol 1e-5 + rtol
+    1e-4); returns the largest |difference|."""
+    worst = max(abs(g - w) for g, w in zip(got, want))
+    if len(got) != len(want) or not all(
+            abs(g - w) <= 1e-5 + 1e-4 * abs(w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: losses {got} != {want}")
+    return worst
+
+
+def phase_examples_train() -> tuple:
+    """19(e): ``train_small`` (lm-100m, bf16, 2 microbatches of 4 x 256)
+    for EX_TRAIN_STEPS steps through the kernels; the same run preempted
+    at step 5 (SIGTERM, its blocking save) and resumed; then f32 runs
+    through the kernels and the plain versions.  Returns (the bf16 run's
+    output, its flash_attention launches)."""
+    import signal
+    import tempfile
+    from repro_torch.examples import train_small
+
+    quiet = lambda msg: None
+    cfg = train_small.model_config()
+    with tempfile.TemporaryDirectory() as d:
+        flash = cfg.n_layers * 2 * EX_TRAIN_STEPS   # a layer a microbatch
+        full, lc = lm_launches(
+            f"train_small.run(steps={EX_TRAIN_STEPS})",
+            lambda: train_small.run(steps=EX_TRAIN_STEPS, log_every=1,
+                                    ckpt_dir=f"{d}/a", log_fn=quiet),
+            {"flash_attention": flash}, {})
+        want = [h["loss"] for h in full["history"]]
+
+        def preempt(msg):
+            if msg.startswith("[trainer] step 5:"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        old = signal.getsignal(signal.SIGTERM)
+        try:
+            first = train_small.run(steps=EX_TRAIN_STEPS, log_every=1,
+                                    ckpt_dir=f"{d}/b", log_fn=preempt)
+        finally:
+            signal.signal(signal.SIGTERM, old)
+        rest = train_small.run(steps=EX_TRAIN_STEPS, log_every=1,
+                               ckpt_dir=f"{d}/b", log_fn=quiet)
+        if not (first["preempted"] and first["final_step"] == 5
+                and rest["start_step"] == 5
+                and rest["final_step"] == EX_TRAIN_STEPS):
+            raise AssertionError(f"preempt and resume: {first['final_step']}"
+                                 f" -> {rest['start_step']} -> "
+                                 f"{rest['final_step']}")
+        got = [h["loss"] for h in first["history"] + rest["history"]]
+        worst = close_losses("the resumed run", got, want)
+        log(f"phase 19: train_small preempted at step 5 and resumed: losses "
+            f"{'bit for bit' if got == want else f'within {worst:.3e}'} of "
+            f"the uninterrupted run's {[round(x, 4) for x in want]}; "
+            f"{full['tokens_s']:.1f} train tokens/s, {full['n_params']} "
+            f"parameters")
+        f32 = {}
+        for mode in (True, "ref"):
+            f32[mode], _ = lm_launches(
+                f"train_small.run(f32, use_kernel={mode!r})",
+                lambda mode=mode: train_small.run(
+                    use_kernel=mode, steps=EX_TRAIN_STEPS, ckpt_dir=f"{d}/"
+                    f"f32{mode}", log_every=1, log_fn=quiet,
+                    dtype="float32"),
+                {"flash_attention": flash} if mode is True else {}, {})
+        losses = {m: [h["loss"] for h in r["history"]]
+                  for m, r in f32.items()}
+        worst = close_losses("f32 kernels vs plain", losses[True],
+                             losses["ref"])
+        log(f"phase 19: train_small f32 losses, kernels vs plain: max "
+            f"|diff| {worst:.3e} (bound 1e-5 + 1e-4 |loss|)")
+    return full, lc
+
+
+def phase_examples(launches: dict) -> None:
+    """19: each ``repro_torch.examples`` module's ``run()`` at a cut,
+    through the kernels and through the plain versions on the card; the
+    plain replays of (a)-(c) in a second process beside the rest."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=examples_plain, args=(send,))
+    child.start()
+    send.close()
+    try:
+        kern = []
+        for label, fn, needs in example_replays():
+            out, _, lc = drive(f"phase 19: {label}(use_kernel=True)",
+                               lambda c, fn=fn: fn(True, c), needs)
+            add_launches(launches, lc)
+            kern.append((label, out))
+        examples_report(*(out for _, out in kern))
+        phase_examples_serve(launches)
+        full, lc = phase_examples_train()
+        add_launches(launches, {"flash_attention": lc["flash_attention"]})
+        status, plain = recv.recv()
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+    if status != "ok":
+        raise AssertionError(f"phase 19's plain runs failed:\n{plain}")
+    for (label, out), b in zip(kern, plain):
+        a = flat_numbers(out)
+        bad = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+        if bad:
+            raise AssertionError(f"{label}: kernels != plain at {bad[:10]}")
+        log(f"phase 19: {label}: kernels == plain, {len(a)} numbers bit "
+            f"for bit")
+    h = full["history"]
+    log(f"phase 19: train_small: loss {h[0]['loss']:.3f} -> "
+        f"{h[-1]['loss']:.3f} over {full['final_step']} steps")
+
+
+def examples_report(qs: dict, ts: dict, hs: dict) -> None:
+    """19(a)-(c)'s numbers; the Monte-Carlo moments within 4 standard
+    errors of Theorem 2 and the scoring routes checked."""
+    import torch
+    from repro_torch.core.delay_stats import mc_aggregate_delay
+    from repro_torch.examples import quickstart
+    t2 = qs["theorem2"]
+    log(f"phase 19: quickstart: Theorem 2 E[D] {t2['mean']:.4f} (MC "
+        f"{t2['mean_mc']:.4f}), Var {t2['var']:.4f} (MC {t2['var_mc']:.4f}); "
+        f"eq. 16 over LRU {qs['improvement'] * 100:.3f}%; routes "
+        f"{ {p: r['route'] for p, r in qs['sim'].items()} }, Erlang row "
+        f"{qs['erlang']['route']}")
+    # the run's own draws again (the same generator and seed): each moment
+    # within 4 standard errors of Theorem 2, as the CPU test holds it
+    d = mc_aggregate_delay(torch.Generator(device="cuda").manual_seed(0),
+                           quickstart.LAM, quickstart.Z, EX_MC).double()
+    n, var = d.numel(), float(d.var(correction=0))
+    se = {"mean": (var / n) ** 0.5,
+          "var": ((float(((d - d.mean()) ** 4).mean()) - var * var) / n)
+          ** 0.5}
+    for k in ("mean", "var"):
+        if abs(t2[f"{k}_mc"] - t2[k]) > 4 * se[k]:
+            raise AssertionError(f"Monte-Carlo {k} {t2[f'{k}_mc']} is not "
+                                 f"within 4 standard errors ({se[k]}) of "
+                                 f"Theorem 2's {t2[k]}")
+    log(f"phase 19: Monte-Carlo moments within "
+        f"{abs(t2['mean_mc'] - t2['mean']) / se['mean']:.2f} and "
+        f"{abs(t2['var_mc'] - t2['var']) / se['var']:.2f} standard errors")
+    if qs["erlang"]["route"] != "epilogue" or \
+            qs["sim"]["stoch_vacdh"]["route"] != "ranking kernel":
+        raise AssertionError(f"routes: {qs['sim']} {qs['erlang']}")
+    imp = {p: round(r["improvement"] * 100, 3)
+           for p, r in ts["policies"].items()}
+    log(f"phase 19: trace_sim ({ts['trace']}, {ts['n_requests']} "
+        f"requests): improvement over LRU (%) {imp}")
+    imp = [(r["l2_capacity"], round(r["improvement"] * 100, 3))
+           for r in hs["grid"]]
+    log(f"phase 19: hierarchy_sim: improvement over LRU (%) by L2 "
+        f"capacity {imp}")
+
+
+def phase_examples_serve(launches: dict) -> None:
+    """19(d): ``serve_engine.run`` through the kernels and the plain
+    versions, the A/B's every ``EngineStats`` field equal; phase 5's f32
+    logits check on two of its prompts."""
+    from repro_torch.examples import serve_engine
+    cfg, params = serve_engine.smoke_model()
+    want = {"flash_attention": cfg.n_layers * serve_engine.N_PROMPTS,
+            "decode_attention": cfg.n_layers * serve_engine.N_PROMPTS
+            * (serve_engine.MAX_NEW - 1)}
+    runs = {}
+    for mode in (True, "ref"):
+        runs[mode], lc = lm_launches(
+            f"serve_engine.run(n_requests={EX_AB_REQUESTS}, "
+            f"use_kernel={mode!r})",
+            lambda mode=mode: serve_engine.run(use_kernel=mode,
+                                               n_requests=EX_AB_REQUESTS),
+            want if mode is True else {}, launches)
+        if mode is True:
+            for k in ("ranking_victim_order", "lane_scatter"):
+                if lc[k] <= 0:
+                    raise AssertionError(f"serve_engine did not launch {k}")
+                launches[k] = launches.get(k, 0) + lc[k]
+    if runs[True]["ab"] != runs["ref"]["ab"]:
+        raise AssertionError(f"serve_engine A/B: kernels {runs[True]['ab']} "
+                             f"!= plain {runs['ref']['ab']}")
+    rm = runs[True]["real_model"]
+    same = sum(a == b for qa, qb in zip(rm["outputs"],
+                                        runs["ref"]["real_model"]["outputs"])
+               for a, b in zip(qa, qb))
+    ab = {p: round(s["total_latency"], 3) for p, s in runs[True]["ab"].items()}
+    log(f"phase 19: serve_engine: {rm['tok_s']:.1f} tok/s (first prefill "
+        f"call {rm['first_call_s']:.3f} s, the rest {rm['later_tok_s']:.1f} "
+        f"tok/s); greedy tokens equal to the plain run's: {same} of "
+        f"{rm['tokens']}; A/B kernels == plain in every EngineStats field, "
+        f"total latency {ab}")
+    check_f32(19, cfg, params, rm["prompts"][:2])
 
 
 def check_mirrors() -> list:
@@ -2911,10 +3236,11 @@ def run_phases(args, t0, dry) -> int:
     timed("16", phase_train, launches)
     timed("17", phase_cells, launches, dry)
     timed("18", phase_realworld, launches)
+    timed("19", phase_examples, launches)
     log(f"seconds by phase: {phase_s}")
     log(f"host mirrors equal to the device state at the end of "
         f"{mirrors[0]} replays")
-    log(f"launches over the main-path runs of phases 2-3, 5 and 7-18: "
+    log(f"launches over the main-path runs of phases 2-3, 5 and 7-19: "
         f"{launches}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
 

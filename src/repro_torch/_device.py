@@ -13,3 +13,8 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+def device_label(dev: torch.device) -> str:
+    """The card's name, or ``cpu``."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -142,6 +142,17 @@ def resolve_score_mode(use_kernel, device) -> str:
                      f"one of {_SCORE_MODES}")
 
 
+def ranks_through_kernel(policy: str, params: PolicyParams,
+                         mode: str) -> bool:
+    """Whether a lane of ``policy`` under ``params`` is scored by the
+    ranking kernel (by its plain version in mode 'ref'): eq. 16 under the
+    Exponential law, unless ``mode`` is 'rank'.  Every other lane scores
+    through its policy's epilogue."""
+    return (mode != "rank"
+            and POLICIES[policy].epilogue is epi_stochastic_vacdh
+            and isinstance(params.dist, Exponential))
+
+
 def _trace_on(trace: Trace, dev: torch.device) -> Trace:
     if trace.device == dev:
         return trace
@@ -251,9 +262,8 @@ class _Engine:
 
     # --- scoring ----------------------------------------------------------
     def _kernelable(self, li: int) -> bool:
-        return (self.mode != "rank"
-                and self.pols[li].epilogue is epi_stochastic_vacdh
-                and isinstance(self.params[li].dist, Exponential))
+        return ranks_through_kernel(self.pols[li].name, self.params[li],
+                                    self.mode)
 
     def _select(self, lanes, t_c, j, top: int):
         """Score each lane ``li`` of ``lanes`` at its commit time

@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_label, resolve_device
 from ..configs import registry
 from ..models import transformer as tf
 from ..serving.scheduler import ContinuousBatcher, Request, SchedulerConfig
@@ -131,10 +131,9 @@ def main(argv=None):
                         n_layers=args.layers)
     prompts = random_prompts(cfg, args.requests, 4, 16)
     r = serve(cfg, params, prompts, args.max_new, device=dev)
-    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-             else "cpu")
-    print(f"[serve] {cfg.name} on {where}: {r['done']} requests, "
-          f"{r['prefill_tokens']} prompt tokens in {r['prefill_s']:.3f} s "
+    print(f"[serve] {cfg.name} on {device_label(dev)}: {r['done']} "
+          f"requests, {r['prefill_tokens']} prompt tokens in "
+          f"{r['prefill_s']:.3f} s "
           f"({r['prefill_tokens'] / r['prefill_s']:.1f} tok/s), "
           f"{r['decode_tokens']} decoded tokens in {r['decode_s']:.3f} s "
           f"({r['decode_tokens'] / max(r['decode_s'], 1e-9):.1f} tok/s), "

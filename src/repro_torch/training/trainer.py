@@ -40,18 +40,27 @@ class RunConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
                  rcfg: RunConfig, *, device=None,
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print, params=None,
+                 batch_fn: Callable[[int], dict] | None = None):
+        """``params`` replaces the seeded initial weights and ``batch_fn``
+        (step -> batch) the synthetic batches; a checkpoint in
+        ``rcfg.ckpt_dir`` still takes precedence over ``params``."""
         import torch
         self.cfg, self.tcfg, self.dcfg, self.rcfg = cfg, tcfg, dcfg, rcfg
         self.device = resolve_device(device)
         self.log = log_fn
         self.ckpt = CheckpointManager(Path(rcfg.ckpt_dir) / cfg.name)
         self.step_fn = make_train_step(cfg, tcfg)
+        self.batch_fn = batch_fn or (lambda step: batch_at(
+            dcfg, step, frontend=cfg.frontend, d_model=cfg.d_model,
+            device=self.device))
         self._preempted = False
         self.history: list[dict] = []
 
-        gen = torch.Generator(device=self.device).manual_seed(rcfg.seed)
-        self.params = tf.init_params(gen, cfg)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(rcfg.seed)
+            params = tf.init_params(gen, cfg)
+        self.params = params
         self.opt = init_opt(self.params)
         self.start_step = 0
         latest = self.ckpt.latest_step()
@@ -79,8 +88,7 @@ class Trainer:
         t0 = time.time()
         step = self.start_step
         while step < self.rcfg.steps and not self._preempted:
-            batch = batch_at(self.dcfg, step, frontend=self.cfg.frontend,
-                             d_model=self.cfg.d_model, device=self.device)
+            batch = self.batch_fn(step)
             self.params, self.opt, metrics = self.step_fn(
                 self.params, self.opt, batch)
             step += 1

@@ -63,7 +63,11 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.launch.train, repro_torch.sharding.specs, "
         "repro_torch.sharding.activation, repro_torch.launch.cells, "
         "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.examples, "
+        "repro_torch.examples.quickstart, repro_torch.examples.trace_sim, "
+        "repro_torch.examples.hierarchy_sim, "
+        "repro_torch.examples.serve_engine, "
+        "repro_torch.examples.train_small\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n")

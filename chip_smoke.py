@@ -22,10 +22,11 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    table with first touches (GreedyDual and other lanes, masked lanes,
    lanes not due, inf ``complete_t``, counts 0 and 1), one launch a
    parameter block; then CUDA-event timings at the main path's shapes
-   (the ranking kernels at N = 100 and 2^20, the serve's write as one
-   batch, as two single launches and as ``index_put_``, a journal's
-   flush of 1, 4, 16 and 256 ops over 1 and 18 lanes, and on the host
-   clock an appended op and a flush call);
+   (the ranking kernels at N = 100 and 2^20, the serving flush of 4
+   objects into the mirror of 4,096 and 2^18 objects as one batch and as
+   two ``index_put_``, a journal's flush of 1, 4, 16 and 256 ops over 1
+   and 18 lanes, and on the host clock an appended op and a flush
+   call);
 2. the paper's result: eq. 17 improvement of the eq.-16 policy over LRU on
    the fig2 synthetic workload (``PAPER_REQUESTS``) through the kernels, held bitwise against
    the same run through the plain versions on the card, plus the card's
@@ -66,13 +67,14 @@ Phases (any mismatch or fault raises and the script exits non-zero):
 7. ``xlstm-350m`` (24 mLSTM blocks, d 1024, bf16) at full width behind
    the ``ContinuousBatcher`` as in phase 5, through the kernel (192
    ``gla_chunk`` launches) and its plain version, and the f32 check;
-8. ``hymba-1.5b`` (32 blocks, d 1600, bf16) at full width by direct
-   prefill and decode calls at ``pos0 = meta + S + i`` (the batcher leaves
-   the meta tokens out of its positions, so ``serve`` refuses the
-   model): prompts of 1,000 and 2,048 tokens and 16 decode steps each,
-   through ``gla_chunk``, ``flash_attention`` and ``decode_attention``
-   and through their plain versions (after an untimed warm-up of both),
-   and the f32 check.
+8. ``hymba-1.5b`` (32 blocks, d 1600, bf16) at full width behind the
+   ``ContinuousBatcher`` as in phase 5, its position offset the 128 meta
+   tokens (caches of meta + prompt + new + 1 positions, cut to the
+   1,152-slot ring; decode at ``pos0 = meta + S + i``), ``HYMBA_NEW`` =
+   8 new tokens a request (cut from phase 5's 32), through
+   ``gla_chunk`` and ``flash_attention`` (once a layer a prompt) and
+   ``decode_attention`` (once a layer a decoded token) and through their
+   plain versions, and the f32 check on two prompts that pack the ring.
 
 9. the sweep grid: (a) fig2 through ``repro_torch.figures.
    fig2_synthetic.run`` at ``FIG2_GRID_REQUESTS`` requests (cut from
@@ -136,7 +138,10 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    card), kernels against plain versions in every (outcome, latency)
    pair and counter, with req/s, syncs per request and the mirror's
    bytes.  A kernel run must launch ``ranking_victim_order`` at least
-   once an eq.-16 admission and the lane scatter at least once a rank;
+   once an eq.-16 admission and the lane scatter at least once a rank.
+   (a)'s plain run goes in a second process beside the rest of the
+   phase (alone it took 64.2 s of the phase's 109.1 s on an H100 80GB
+   HBM3 at 700 W);
 14. the sweep fabric: (a) ``bench_sweep``'s 24-lane scaling grid
    (stoch_vacdh, 8 omegas x 3 capacities, 100 objects, eq. 16 through
    ``ranking_victim_order``) at ``FABRIC_REQUESTS`` requests, (b)
@@ -176,24 +181,32 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    size: a full-width one would be ~40 GB);
 17. the sharding layer: (a) started right after the build and run on the
    CPU beside phases 1-16 (two subprocesses at a time, no card visible):
-   ``repro_torch.launch.dryrun`` of ``stablelm-1.6b`` at train_4k,
-   prefill_32k and decode_32k on the single production mesh (16 x 16, a
-   fake world of 256 ranks) and on one device at ``CELL_BATCH`` (1 x 1);
-   each record's per-device peak, flops, wire bytes by kind and its
-   roofline row printed; (b) the same three cells through
-   ``launch.cells.input_specs`` on ``make_local_mesh()`` as DTensors over a
-   one-rank NCCL ``DeviceMesh``, from a seed at full width, cut only in
-   batch (``CELL_BATCH``: train 4 x 4,096 tokens for ``CELL_TRAIN_STEPS``
-   steps, ``flash_attention`` twice a layer a step; a 32,768-token prefill,
-   ``flash_attention`` once a layer; decode at batch 8 over a 32,768-slot
-   cache (51.5 GB) for ``CELL_DECODE_STEPS`` steps, ``decode_attention``
-   once a layer a step), each against the same steps on plain tensors bit
-   for bit, and the 32k prefill's kernel route against the q-chunked plain
-   route in f32 at 2 layers (last-token logits within 1e-3 of max
-   |logit|); measured peak memory, step time and tokens/s printed beside
-   the local dry run's prediction and its roofline bound; (c) the custom
-   op's host cost a call over the kernel wrapper's at phase 5's decode
-   shape;
+   ``repro_torch.launch.dryrun`` of ``stablelm-1.6b``, ``xlstm-350m`` and
+   ``hymba-1.5b`` at train_4k, prefill_32k and decode_32k on one device
+   at ``CELL_BATCH`` (1 x 1), and StableLM's on the single production
+   mesh too (16 x 16, a fake world of 256 ranks); each production
+   record's per-device peak, flops, wire bytes by kind and its roofline
+   row printed; (b) for each of the three models, the same three cells
+   through ``launch.cells.input_specs`` on ``make_local_mesh()`` as
+   DTensors over a one-rank NCCL ``DeviceMesh``, from a seed at full
+   width, cut only in batch (``CELL_BATCH``: train 4 x 4,096 tokens for
+   ``CELL_TRAIN_STEPS`` steps, each train kernel (``flash_attention``,
+   ``gla_chunk``) twice a layer a step; a 32,768-token prefill, each
+   prefill kernel once a layer; decode at batch 8 at the last
+   ``CELL_DECODE_STEPS`` positions of meta + 32,768 (StableLM's
+   32,768-slot cache is 51.5 GB, Hymba's a 1,152-slot ring and a GLA
+   state, xLSTM's a GLA state), ``decode_attention`` once a layer a step
+   where the model has attention), each against the same steps on plain
+   tensors bit for bit (losses and parameters; logits and every cache
+   leaf), and the 32k prefill's kernel route against the plain route
+   (q-chunked attention, plain GLA) in f32 at 2 layers (last-token logits
+   within 1e-3 of max |logit|); measured peak memory, step time and
+   tokens/s printed beside the local dry run's prediction and its
+   roofline bound; (c) the custom op's host cost a call over the kernel
+   wrapper's at phase 5's decode shape; (d) for xLSTM and Hymba, one f32
+   ``value_and_grad`` at full width, 2 layers, ``GRAD_CHECK`` = 2 x 512
+   tokens, through the kernels' forward against the plain route: the
+   loss and every gradient element within atol 1e-5 + rtol 1e-4;
 18. ``fig_realworld``: ``repro_torch.figures.fig_realworld.run`` at
    ``REALWORLD_REQUESTS`` requests (cut from its 1,000,000, which takes
    a 3000 s call of its own: ``figures.run --only realworld``) with every
@@ -267,6 +280,23 @@ after it) and the script 632.0 s on an H100 80GB HBM3 at 700 W, past
 half the limit, so phase 18, the longest host-bound phase (72.0 s),
 runs at half its depth: ``REALWORLD_REQUESTS`` 5,000 -> 2,500.
 
+Phase 8 through the batcher and the GLA family's cells and gradient
+checks in phase 17 add card work, and the script took 826.9 s in one run
+of the parent tree (phase 13 109.1 s, phase 19 113.8 s; 632.0 s in
+another run of the same code), so before they were added the two
+longest host-bound phases were cut: phase 13(a)'s plain run went into
+a second process and ``SERVE_REQUESTS`` 5,000 -> 2,500; phase 19's
+replays ``EX_QS_REQUESTS`` 2,500 -> 1,250, ``EX_TS_REQUESTS`` 2,000 ->
+1,000, ``EX_HIER_REQUESTS`` 1,000 -> 500 and ``EX_AB_REQUESTS`` 2,000 ->
+1,000; phase 8 decodes ``HYMBA_NEW`` = 16 tokens a request (phase 5's
+32).  With them the script took 627.0 s and 671.6 s in two runs and
+835.5 s in a third (a host ~1.3x slower on every phase), so the other
+host-bound replays were halved: ``SLOT_PREFIX`` 2,500 -> 1,250,
+``HIER_REQUESTS`` 625 -> 312, the three fabric depths 1,250 / 625 / 500
+-> 625 / 312 / 250, ``REALWORLD_REQUESTS`` 2,500 -> 1,250, and
+``HYMBA_NEW`` 16 -> 8.  Phases 2 and 9(a), which hold the eq.-17 bands,
+and phase 10's stream (two chunks of 4096) keep their depths.
+
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
 ``repro_torch.figures.run``); their checks are here.
@@ -304,8 +334,8 @@ GRID_REQUESTS = 1_250         # phase 9b's replay, cut from 5,000
 FIG2_GRID_REQUESTS = 2_500    # phases 9a-10's fig2, cut from 10,000
 STREAM_REQUESTS = 5_000       # phases 10-11's stream, cut from 20,000
 N_KEYS = 200_000              # fig_realworld's key space
-SLOT_PREFIX = 2_500           # phase 11's seed and reclaim runs, from 5,000
-HIER_REQUESTS = 625           # phase 12's hierarchies, cut from 2,500
+SLOT_PREFIX = 1_250           # phase 11's seed and reclaim runs, from 5,000
+HIER_REQUESTS = 312           # phase 12's hierarchies, cut from 2,500
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 8                # phase 15: 8 of 32 layers (~84 GB in all)
 MOE_CHECK_LAYERS = 2          # phase 15's f32 check, phase 16(b)'s model
@@ -622,10 +652,8 @@ def phase_kernels() -> dict:
             f" plain {r['plain_us']:.2f} us, bound {r['bound_us']:.4f} us"
             + ("" if r["library_us"] is None else
                f", library {r['library_us']:.2f} us ({r['library']})"))
-        if "singles_us" in r:
-            log(f"phase 1: lane_scatter at {r['shape']}: two single "
-                f"launches {r['singles_us']:.2f} us; in the 32 KB parameter "
-                f"block {r['param32k_us']:.2f} us; one batch call "
+        if "host_call_us" in r:
+            log(f"phase 1: lane_scatter at {r['shape']}: one batch call "
                 f"{r['host_call_us']:.2f} us on the host clock (packing + "
                 f"launch, 1000 calls)")
         if "append_us" in r:
@@ -635,7 +663,7 @@ def phase_kernels() -> dict:
                 f"{r['flush_host_us']:.2f} us a flush call of 4 ops, on "
                 f"the host clock")
     return {r["name"]: kernel_entry(r, err[r["name"]]) for r in rows
-            if r["n"] == N_DEPLOY and r.get("main", True)}
+            if r.get("main", r["n"] == N_DEPLOY)}
 
 
 def kernel_entry(row: dict, max_abs_err: float) -> dict:
@@ -802,6 +830,7 @@ def phase_deploy(n_requests: int, launches: dict) -> None:
 
 # --- phases 4-5: the LM serve path --------------------------------------------
 SERVE_ARCH = "stablelm-1.6b"
+HYMBA_NEW = 8                 # phase 8's new tokens a request, cut from 32
 
 
 def bf16_ulp_excess(got, want):
@@ -1099,15 +1128,38 @@ def build_model(phase: int, arch: str, n_layers: int | None = None):
     return cfg, params
 
 
+def lm_kernels(cfg, kind: str) -> tuple:
+    """The LM kernels a ``kind`` ("train", "prefill" or "decode") forward
+    of ``cfg`` launches once a layer: the attention kernels outside the
+    ``ssm`` family, ``gla_chunk`` for its chunked prompts (``ssm`` and
+    ``hybrid``; a decode step's recurrence is plain PyTorch)."""
+    out = []
+    if cfg.family != "ssm":
+        out.append("decode_attention" if kind == "decode"
+                   else "flash_attention")
+    if cfg.family in ("ssm", "hybrid") and kind != "decode":
+        out.append("gla_chunk")
+    return tuple(out)
+
+
+def check_launches(label: str, lc: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched exactly that often, no other."""
+    bad = {k: v for k, v in lc.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{label} launched {bad}, not {want}")
+
+
 def phase_serve(phase: int, arch: str, launches: dict,
-                per_prompt: tuple, per_token: tuple,
-                n_layers: int | None = None, f32_check: bool = True):
+                n_layers: int | None = None, f32_check: bool = True,
+                max_new: int = 32):
     """``arch`` at full width (cut to ``n_layers`` if given) behind the
     continuous batcher (max_batch 4, 8 requests of 512-2048 prompt tokens,
-    32 new tokens each), through the kernels and through their plain
-    versions; then the f32 logits check unless ``f32_check`` is false.
-    The kernel run must launch each kernel of ``per_prompt`` once a layer
-    per prompt and each of ``per_token`` once a layer per decoded token.
+    ``max_new`` new tokens each), through the kernels and through their
+    plain versions; then the f32 logits check unless ``f32_check`` is
+    false.
+    The kernel run must launch each prefill kernel of the model
+    (:func:`lm_kernels`) once a layer per prompt and each decode kernel
+    once a layer per decoded token.
     Returns (cfg, params, prompts, the kernel run's ``serve`` result)."""
     import dataclasses
     import torch
@@ -1117,13 +1169,13 @@ def phase_serve(phase: int, arch: str, launches: dict,
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, params = build_model(phase, arch, n_layers)
     prompts = random_prompts(cfg, 8, 512, 2049)
-    max_new = 32
     log(f"phase {phase}: 8 requests, prompt lengths "
         f"{[len(p) for p in prompts]}, {max_new} new tokens each, "
         f"max_batch 4")
-    want = {k: cfg.n_layers * len(prompts) for k in per_prompt}
+    want = {k: cfg.n_layers * len(prompts)
+            for k in lm_kernels(cfg, "prefill")}
     want.update({k: cfg.n_layers * len(prompts) * (max_new - 1)
-                 for k in per_token})
+                 for k in lm_kernels(cfg, "decode")})
     # untimed warm-up of both paths on the same prompts (2 new tokens), so
     # neither timed run pays first-use costs (library heuristics, memory)
     for mode in (True, "ref"):
@@ -1258,69 +1310,6 @@ def phase_gla() -> dict:
             f"({r['bound_by']}: {r['bound_how']})")
         out[name] = kernel_entry(r, worst["err"])
     return out
-
-
-# --- phase 8: Hymba-1.5B by direct prefill and decode calls ------------------
-def phase_hymba(launches: dict) -> None:
-    """Hymba-1.5B at full width: two prompts (~1,000 and 2,048 tokens),
-    prefill then 16 greedy decode steps each at pos0 = meta + S + j,
-    through the kernels and their plain versions; then the f32 check."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, params = build_model(8, "hymba-1.5b")
-    rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (1000, 2048)]
-    steps = 16
-    ring = cfg.meta_tokens + cfg.sliding_window
-    log(f"phase 8: prompts of {[len(p) for p in prompts]} tokens + "
-        f"{cfg.meta_tokens} meta tokens, {steps} decode steps each, a "
-        f"{ring}-slot ring (the second prompt packs it, its decode wraps)")
-    n_l = cfg.n_layers
-    want = {"gla_chunk": n_l * len(prompts),
-            "flash_attention": n_l * len(prompts),
-            "decode_attention": n_l * len(prompts) * steps}
-    # untimed warm-up of both paths on the same prompts (as in phase 5)
-    for mode in (True, "ref"):
-        for p in prompts:
-            run_request(dataclasses.replace(cfg, use_kernel=mode), params, p,
-                        2)
-    outs = {}
-    for mode in (True, "ref"):
-        c = dataclasses.replace(cfg, use_kernel=mode)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        res = [run_request(c, params, p, steps) for p in prompts]
-        lc = launch_counts()
-        outs[mode] = res
-        pre_s, dec_s = sum(r[2] for r in res), sum(r[3] for r in res)
-        n_pre = sum(cfg.meta_tokens + len(p) for p in prompts)
-        log(f"phase 8: use_kernel={mode!r}: prefill {n_pre} tokens (meta "
-            f"included) in {pre_s:.3f} s ({n_pre / pre_s:.1f} tok/s), decode "
-            f"{steps * len(prompts)} tokens in {dec_s:.3f} s "
-            f"({steps * len(prompts) / dec_s:.1f} tok/s); launches "
-            f"{ {k: lc[k] for k in want} }")
-        for logits, *_ in res:
-            if not bool(torch.isfinite(logits).all()) or \
-                    logits.shape != (steps + 1, cfg.vocab):
-                raise AssertionError(f"use_kernel={mode!r}: logits "
-                                     f"{tuple(logits.shape)} not finite")
-        if mode is True:
-            for k, n in want.items():
-                if lc[k] != n:
-                    raise AssertionError(f"the Hymba path launched {k} "
-                                         f"{lc[k]} times, not {n}")
-            add_launches(launches, lc)
-        elif any(lc.values()):
-            raise AssertionError(f"the plain Hymba run launched {lc}")
-    same = sum(a == b for rk, rr in zip(outs[True], outs["ref"])
-               for a, b in zip(rk[1], rr[1]))
-    log(f"phase 8: greedy tokens equal to the plain run's: {same} of "
-        f"{len(prompts) * (steps + 1)}")
-    check_f32(8, cfg, params, prompts)
 
 
 # --- phases 9-10: the sweep grid and the streaming replay --------------------
@@ -1783,7 +1772,7 @@ def phase_hier(launches: dict) -> None:
 
 
 # --- phase 13: the serving engine --------------------------------------------
-SERVE_REQUESTS = 5_000        # phase 13(b)'s flash crowd, cut from 20,000
+SERVE_REQUESTS = 2_500        # phase 13(b)'s flash crowd, cut from 20,000
 SERVE_OBJECTS = 1 << 18       # phase 13(b)'s prefix table
 
 
@@ -1802,24 +1791,73 @@ def serve_cost_check(label: str, admits: int, ranks: int, rank_launches: int,
                              f"for {admits} admissions")
 
 
-def phase_serving(launches: dict) -> None:
-    """13: (a) ``bench_serving.run(smoke=True)`` through the kernels and
-    through the plain versions, rows equal; (b) a flash crowd over
-    ``N_KEYS`` keys through a 2^18-object prefix table, eq. 16 and LRU,
-    kernels against plain versions request by request."""
+def timed_run(fn):
+    """(``fn()``, its seconds ending in a sync, its launches from zero)."""
     import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def bench_serving_run(mode):
+    """13(a)'s ``bench_serving.run(smoke=True)`` with ``use_kernel=mode``:
+    (rows, seconds, launches, its counters)."""
+    from repro_torch.figures import bench_serving as bs
+    cost = {}
+    rows, dt, lc = timed_run(lambda: bs.run(
+        smoke=True, use_kernel=mode, counters=cost,
+        out=os.path.join(ROOT, "src", "repro_torch", "figures", "results",
+                         f"bench_serving_{mode or 'kernel'}.json")))
+    return rows, dt, lc, cost
+
+
+def serving_plain(conn) -> None:
+    """13(a) through the plain versions, in a process of its own: sends
+    back ("ok", ``bench_serving_run("ref")``) or ("error", the
+    traceback)."""
+    try:
+        conn.send(("ok", bench_serving_run("ref")))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def phase_serving(launches: dict) -> None:
+    """13: (a) ``bench_serving.run(smoke=True)`` through the kernels and,
+    in a second process beside the rest of the phase, through the plain
+    versions, rows equal; (b) a flash crowd over ``N_KEYS`` keys through
+    a 2^18-object prefix table, eq. 16 and LRU, kernels against plain
+    versions request by request."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=serving_plain, args=(send,))
+    child.start()
+    send.close()
+    try:
+        serving_engines(launches)
+        kern = bench_serving_run(None)
+        status, plain = recv.recv()
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.terminate()
+            child.join()
+    if status != "ok":
+        raise AssertionError(f"phase 13a's plain run failed:\n{plain}")
+    serving_bench_report(launches, {None: kern, "ref": plain})
+
+
+def serving_engines(launches: dict) -> None:
+    """13's card-against-CPU check and 13(b)."""
     from repro_torch.data.scenarios import make_scenario
     from repro_torch.figures import bench_serving as bs
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-
-    def run(fn):
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, launch_counts()
-
     # the card against the CPU on a small workload
     w = make_scenario("flash_crowd", seed=3, n_requests=600, n_keys=80)
     small = []
@@ -1833,14 +1871,60 @@ def phase_serving(launches: dict) -> None:
     log("phase 13: flash crowd, 600 requests: card == CPU (every counter, "
         "the latency sum and the sketch)")
 
+    w = make_scenario("flash_crowd", seed=0, n_requests=SERVE_REQUESTS,
+                      n_keys=N_KEYS)
+    foot = bs._footprint(w)
+    reqs = [(float(t), f"p{k}", int(n))
+            for t, k, n in zip(w.times, w.keys, w.n_tokens)]
+    log(f"phase 13b: flash crowd, {SERVE_REQUESTS} requests over {N_KEYS} "
+        f"keys ({len(set(w.keys.tolist()))} touched), capacity 25% of the "
+        f"{foot:.0f}-token footprint, {SERVE_OBJECTS}-object table, hedged")
+    for policy in ("stoch_vacdh", "lru"):
+        out = {}
+        for mode in (None, "ref"):
+            eng = bs._make_engine(w, hedging=True, hier=False,
+                                  policy=policy, use_kernel=mode,
+                                  max_objects=SERVE_OBJECTS)
+            got, dt, lc = timed_run(lambda eng=eng: [eng.serve(*q)
+                                                     for q in reqs])
+            c = eng.cache.counters
+            out[mode] = (got, eng.stats.as_dict())
+            if mode is None:
+                serve_cost_check(f"13b {policy}", c["admits"], c["ranks"],
+                                 lc["ranking_victim_order"],
+                                 lc["lane_scatter"], policy == "stoch_vacdh")
+                add_launches(launches, lc)
+            elif any(lc.values()):
+                raise AssertionError(f"13b plain run launched: {lc}")
+            log(f"phase 13b: {policy} use_kernel={mode!r}: {dt:.2f} s, "
+                f"{SERVE_REQUESTS / dt:.1f} req/s, "
+                f"{c['syncs'] / SERVE_REQUESTS:.4f} syncs/request, "
+                f"{c['admits']} admissions, {c['ranks']} ranks, "
+                f"{c['flushed'] / max(c['flushes'], 1):.2f} objects a "
+                f"flush, mirror {eng.cache.mirror_bytes} bytes, launches "
+                f"{lc}")
+        if out[None] != out["ref"]:
+            k = next((i for i, (a, b) in enumerate(zip(out[None][0],
+                                                       out["ref"][0]))
+                      if a != b), None)
+            raise AssertionError(f"13b {policy}: kernels != plain (first "
+                                 f"request {k}): {out[None][1]} vs "
+                                 f"{out['ref'][1]}")
+        st = out[None][1]
+        log(f"phase 13b: {policy}: kernels == plain in every (outcome, "
+            f"latency) and counter: hits {st['hits']}, delayed "
+            f"{st['delayed_hits']}, misses {st['misses']}, evictions "
+            f"{st['evictions']}, hedges {st['hedges']}, mean latency "
+            f"{st['mean_latency']}")
+
+
+def serving_bench_report(launches: dict, runs: dict) -> None:
+    """13(a): the kernel run's costs and launches, the plain run's none,
+    every row field but ``bench_serving.MEASURED`` equal."""
+    from repro_torch.figures import bench_serving as bs
     res = {}
     for mode in (None, "ref"):
-        cost = {}
-        rows, dt, lc = run(lambda mode=mode: bs.run(
-            smoke=True, use_kernel=mode, counters=cost,
-            out=os.path.join(ROOT, "src", "repro_torch", "figures",
-                             "results", f"bench_serving_{mode or 'kernel'}"
-                                        ".json")))
+        rows, dt, lc, cost = runs[mode]
         res[mode] = rows
         if mode is None:
             serve_cost_check("13a kernels", cost["admits"], cost["ranks"],
@@ -1881,56 +1965,11 @@ def phase_serving(launches: dict) -> None:
     log(f"phase 13a: {len(res[None])} rows, kernels == plain in every "
         f"field but {bs.MEASURED}")
 
-    w = make_scenario("flash_crowd", seed=0, n_requests=SERVE_REQUESTS,
-                      n_keys=N_KEYS)
-    foot = bs._footprint(w)
-    reqs = [(float(t), f"p{k}", int(n))
-            for t, k, n in zip(w.times, w.keys, w.n_tokens)]
-    log(f"phase 13b: flash crowd, {SERVE_REQUESTS} requests over {N_KEYS} "
-        f"keys ({len(set(w.keys.tolist()))} touched), capacity 25% of the "
-        f"{foot:.0f}-token footprint, {SERVE_OBJECTS}-object table, hedged")
-    for policy in ("stoch_vacdh", "lru"):
-        out = {}
-        for mode in (None, "ref"):
-            eng = bs._make_engine(w, hedging=True, hier=False,
-                                  policy=policy, use_kernel=mode,
-                                  max_objects=SERVE_OBJECTS)
-            got, dt, lc = run(lambda eng=eng: [eng.serve(*q) for q in reqs])
-            c = eng.cache.counters
-            out[mode] = (got, eng.stats.as_dict())
-            if mode is None:
-                serve_cost_check(f"13b {policy}", c["admits"], c["ranks"],
-                                 lc["ranking_victim_order"],
-                                 lc["lane_scatter"], policy == "stoch_vacdh")
-                add_launches(launches, lc)
-            elif any(lc.values()):
-                raise AssertionError(f"13b plain run launched: {lc}")
-            log(f"phase 13b: {policy} use_kernel={mode!r}: {dt:.2f} s, "
-                f"{SERVE_REQUESTS / dt:.1f} req/s, "
-                f"{c['syncs'] / SERVE_REQUESTS:.4f} syncs/request, "
-                f"{c['admits']} admissions, {c['ranks']} ranks, "
-                f"{c['flushed'] / max(c['flushes'], 1):.2f} objects a "
-                f"flush, mirror {eng.cache.mirror_bytes} bytes, launches "
-                f"{lc}")
-        if out[None] != out["ref"]:
-            k = next((i for i, (a, b) in enumerate(zip(out[None][0],
-                                                       out["ref"][0]))
-                      if a != b), None)
-            raise AssertionError(f"13b {policy}: kernels != plain (first "
-                                 f"request {k}): {out[None][1]} vs "
-                                 f"{out['ref'][1]}")
-        st = out[None][1]
-        log(f"phase 13b: {policy}: kernels == plain in every (outcome, "
-            f"latency) and counter: hits {st['hits']}, delayed "
-            f"{st['delayed_hits']}, misses {st['misses']}, evictions "
-            f"{st['evictions']}, hedges {st['hedges']}, mean latency "
-            f"{st['mean_latency']}")
-
 
 # --- phase 14: the sweep fabric on the card ----------------------------------
-FABRIC_REQUESTS = 1_250       # phase 14(a)'s grid, cut from 5,000
-FABRIC_MULTI_REQUESTS = 625   # 14(b)'s, cut from 2,500
-FABRIC_HIER_REQUESTS = 500   # phase 14(c)'s fig6 route, cut from 2,000
+FABRIC_REQUESTS = 625         # phase 14(a)'s grid, cut from 5,000
+FABRIC_MULTI_REQUESTS = 312   # 14(b)'s, cut from 2,500
+FABRIC_HIER_REQUESTS = 250    # phase 14(c)'s fig6 route, cut from 2,000
 
 
 def fabric_pair(label: str, fn, needs, launches: dict, arrays):
@@ -2128,8 +2167,7 @@ def phase_moe_serve(launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, params, prompts, run = phase_serve(
-        15, MOE_ARCH, launches, ("flash_attention",), ("decode_attention",),
-        n_layers=MOE_LAYERS, f32_check=False)
+        15, MOE_ARCH, launches, n_layers=MOE_LAYERS, f32_check=False)
     t1 = time.perf_counter()
     # the idle share of one request (prefill and 31 decodes): its
     # unprofiled wall against the device time of the same work profiled
@@ -2382,21 +2420,26 @@ def phase_train(launches: dict) -> None:
     phase_trainer()
 
 
-# --- phase 17: StableLM's cells through the sharding layer ------------------
+# --- phase 17: the LM cells through the sharding layer ----------------------
 CELL_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# StableLM on the production mesh and on one device; the GLA family's
+# (xLSTM-350M, Hymba-1.5B) on one device only, beside the host-bound phases
+CELL_ARCHS = (SERVE_ARCH, "xlstm-350m", "hymba-1.5b")
 # one device's batch of each cell: train 4 x 4,096 tokens, a 32k prefill of
 # one sequence, and decode_32k's 128 over the 16-wide data axis
 CELL_BATCH = {"train_4k": 4, "prefill_32k": 1, "decode_32k": 8}
 CELL_TRAIN_STEPS = 4          # 17(b): a warm-up step and 3 timed ones
 CELL_DECODE_STEPS = 3
+GRAD_CHECK = (2, 512)         # 17(d): batch x tokens of the f32 check
 
 
 class DryRuns:
     """17(a), started right after the build: ``repro_torch.launch.dryrun``
-    of ``SERVE_ARCH`` at each of ``CELL_SHAPES`` on the single production
-    mesh (a fake world of 256 ranks) and on one device at ``CELL_BATCH``
-    (a 1x1 mesh), one subprocess a cell, two at a time, on the CPU alone
-    (no card visible), while phases 1-16 run."""
+    of each of ``CELL_ARCHS`` at each of ``CELL_SHAPES`` on one device at
+    ``CELL_BATCH`` (a 1x1 mesh), and ``SERVE_ARCH``'s on the single
+    production mesh (a fake world of 256 ranks) too, one subprocess a cell,
+    two at a time, on the CPU alone (no card visible), while phases 1-16
+    run."""
 
     def __init__(self):
         import concurrent.futures
@@ -2405,20 +2448,22 @@ class DryRuns:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    CUDA_VISIBLE_DEVICES="")
         self.jobs = []
-        for shape in CELL_SHAPES:
-            for mesh in ("single", "local"):
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", SERVE_ARCH, "--shape", shape, "--mesh",
-                       mesh, "--out-dir", self.dir]
-                if mesh == "local":
-                    cmd += ["--global-batch", str(CELL_BATCH[shape])]
-                self.jobs.append((shape, mesh, cmd))
+        for arch in CELL_ARCHS:
+            for shape in CELL_SHAPES:
+                for mesh in (("single", "local") if arch == SERVE_ARCH
+                             else ("local",)):
+                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", arch, "--shape", shape, "--mesh", mesh,
+                           "--out-dir", self.dir]
+                    if mesh == "local":
+                        cmd += ["--global-batch", str(CELL_BATCH[shape])]
+                    self.jobs.append((arch, shape, mesh, cmd))
         import threading
         self.procs = []
         self.lock, self.stopped = threading.Lock(), False
         self.pool = concurrent.futures.ThreadPoolExecutor(2)
         self.futures = [self.pool.submit(self._run, cmd, env)
-                        for _, _, cmd in self.jobs]
+                        for *_, cmd in self.jobs]
 
     def _run(self, cmd, env):
         with self.lock:
@@ -2432,16 +2477,17 @@ class DryRuns:
         return p.returncode, out
 
     def records(self) -> dict:
-        """{(shape, mesh): record}; raises unless every cell is ``ok``."""
+        """{(arch, shape, mesh): record}; raises unless every cell is
+        ``ok``."""
         recs = {}
-        for (shape, mesh, _), fut in zip(self.jobs, self.futures):
+        for (arch, shape, mesh, _), fut in zip(self.jobs, self.futures):
             rc, out = fut.result()
-            path = os.path.join(self.dir, f"{SERVE_ARCH}@{shape}@{mesh}.json")
+            path = os.path.join(self.dir, f"{arch}@{shape}@{mesh}.json")
             rec = json.load(open(path)) if os.path.exists(path) else {}
             if rc or not rec.get("ok"):
-                raise AssertionError(f"the dry run of {shape}@{mesh} failed "
-                                     f"(exit {rc}): {out[-2000:]}")
-            recs[(shape, mesh)] = rec
+                raise AssertionError(f"the dry run of {arch}@{shape}@{mesh} "
+                                     f"failed (exit {rc}): {out[-2000:]}")
+            recs[(arch, shape, mesh)] = rec
         return recs
 
     def stop(self):
@@ -2459,6 +2505,25 @@ def local(x):
     return x.to_local() if hasattr(x, "to_local") else x
 
 
+def local_leaves(tree) -> list:
+    """The tensor leaves of a tree of dicts, lists and tuples (named ones
+    too), DTensors as their local shards."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in local_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in local_leaves(v)]
+    return [local(tree)]
+
+
+def same_leaves(a, b) -> bool:
+    """Two trees' tensors bit for bit (dtype, shape and values)."""
+    import torch
+    a, b = local_leaves(a), local_leaves(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2469,19 +2534,22 @@ def free_port() -> int:
 def cell_train(cfg, dmesh, launches: dict) -> dict:
     """train_4k at ``CELL_BATCH`` sequences: the cell's step on DTensors
     from a seed, then ``make_train_step`` on plain tensors from the same
-    seed, losses and final parameters bit for bit."""
+    seed, losses and final parameters bit for bit; the DTensor run
+    launches each train kernel twice a layer a step (the forward and the
+    checkpoint's recompute under remat "full")."""
     import torch
     from repro_torch.data.tokens import DataConfig, batch_at
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.cells import input_specs, materialize
     from repro_torch.models import transformer as tf
-    from repro_torch.training.optimizer import (OptConfig, init_opt,
-                                                tree_leaves)
+    from repro_torch.training.optimizer import OptConfig, init_opt
     from repro_torch.training.train_loop import TrainConfig, make_train_step
     b = CELL_BATCH["train_4k"]
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
                                      total_steps=CELL_TRAIN_STEPS))
     cell = input_specs(cfg, "train_4k", dmesh, tcfg, global_batch=b)
+    want = {k: cfg.n_layers * 2 * CELL_TRAIN_STEPS
+            for k in lm_kernels(cfg, "train")}
 
     def values():
         gen = torch.Generator(device="cuda").manual_seed(17)
@@ -2516,40 +2584,38 @@ def cell_train(cfg, dmesh, launches: dict) -> dict:
         params, losses, secs = run(step, args)
         if label == "dtensor":
             lc = launch_counts()
-            want = cfg.n_layers * 2 * CELL_TRAIN_STEPS
-            if lc["flash_attention"] != want or any(
-                    v for k, v in lc.items() if k != "flash_attention"):
-                raise AssertionError(f"17(b) train_4k launched {lc}, not "
-                                     f"flash_attention {want} times")
+            check_launches(f"17(b) {cfg.name} train_4k", lc, want)
             add_launches(launches, lc)
-            final = [local(x).cpu() for x in tree_leaves(params)]
+            final = [x.cpu() for x in local_leaves(params)]
         else:
-            same = all(torch.equal(local(x).cpu(), y)
-                       for x, y in zip(tree_leaves(params), final))
+            same = all(torch.equal(x.cpu(), y) for x, y in
+                       zip(local_leaves(params), final))
         out[label] = dict(losses=losses, secs=secs,
                           peak=torch.cuda.max_memory_allocated())
         del args, params
     d, p = out["dtensor"], out["plain"]
     warm = statistics.mean(d["secs"][1:])
-    log(f"phase 17(b): train_4k, {b} x 4096 tokens, {CELL_TRAIN_STEPS} "
-        f"steps: DTensor losses {[round(x, 4) for x in d['losses']]}; "
-        f"steps 2-{CELL_TRAIN_STEPS} {warm:.3f} s each "
-        f"({b * 4096 / warm:.1f} train tokens/s; plain tensors "
-        f"{statistics.mean(p['secs'][1:]):.3f} s), peak memory "
+    log(f"phase 17(b): {cfg.name} train_4k, {b} x 4096 tokens, "
+        f"{CELL_TRAIN_STEPS} steps: DTensor losses "
+        f"{[round(x, 4) for x in d['losses']]}; steps 2-{CELL_TRAIN_STEPS} "
+        f"{warm:.3f} s each ({b * 4096 / warm:.1f} train tokens/s; plain "
+        f"tensors {statistics.mean(p['secs'][1:]):.3f} s), peak memory "
         f"{d['peak'] / 2**30:.2f} GiB (plain {p['peak'] / 2**30:.2f} GiB); "
-        f"flash_attention {cfg.n_layers * 2} launches a step")
+        f"launches a step { {k: v // CELL_TRAIN_STEPS for k, v in want.items()} }")
     if d["losses"] != p["losses"] or not same:
         raise AssertionError(f"the DTensor train steps differ from the "
                              f"plain ones: losses {d['losses']} vs "
                              f"{p['losses']}, parameters equal: {same}")
-    if not d["losses"][-1] < d["losses"][0]:
+    if not all(x == x for x in d["losses"]) or \
+            not d["losses"][-1] < d["losses"][0]:
         raise AssertionError(f"the loss did not fall: {d['losses']}")
     return dict(s=warm, tokens_s=b * 4096 / warm, peak=d["peak"])
 
 
 def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
     """prefill_32k at batch 1 on DTensors against the plain prefill on a
-    fresh cache: last-token logits and the whole cache bit for bit."""
+    fresh cache: last-token logits and the whole returned cache (ring,
+    recurrent state, conv tail) bit for bit."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.cells import input_specs, materialize
@@ -2557,124 +2623,162 @@ def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
     from repro_torch.training.train_loop import make_serve_steps
     cell = input_specs(cfg, "prefill_32k", dmesh, global_batch=1)
     s = toks.shape[1]
+    cap = cfg.meta_tokens + s + 1
+    want = {k: cfg.n_layers for k in lm_kernels(cfg, "prefill")}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cache = tf.init_cache(cfg, 1, s + 1)
-    args = materialize(cell, (params, cache, {"tokens": toks}))
+    args = materialize(cell, (params, tf.init_cache(cfg, 1, cap),
+                              {"tokens": toks}))
     cell.fn(*args)                                      # warm-up
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _ = cell.fn(*args)
+    got = cell.fn(*args)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     lc = launch_counts()
-    if lc["flash_attention"] != cfg.n_layers or any(
-            v for k, v in lc.items() if k != "flash_attention"):
-        raise AssertionError(f"17(b) prefill_32k launched {lc}")
+    check_launches(f"17(b) {cfg.name} prefill_32k", lc, want)
     add_launches(launches, lc)
     peak = torch.cuda.max_memory_allocated()
     prefill, _ = make_serve_steps(cfg)
-    cache2 = tf.init_cache(cfg, 1, s + 1)
-    want, _ = prefill(params, cache2, {"tokens": toks})
-    same = torch.equal(local(logits), want) and all(
-        torch.equal(a["attn"][k], b["attn"][k]) for a, b in zip(cache, cache2)
-        for k in ("k", "v", "kpos"))
-    log(f"phase 17(b): prefill_32k, 1 x {s} tokens: {sec:.3f} s "
+    same = same_leaves(got, prefill(params, tf.init_cache(cfg, 1, cap),
+                                    {"tokens": toks}))
+    log(f"phase 17(b): {cfg.name} prefill_32k, 1 x {s} tokens: {sec:.3f} s "
         f"({s / sec:.1f} tok/s), peak memory {peak / 2**30:.2f} GiB, "
-        f"flash_attention {lc['flash_attention']} launches; DTensor == plain "
-        f"(logits and cache): {same}")
+        f"launches {want}; DTensor == plain (logits and cache): {same}")
     if not same:
         raise AssertionError("the DTensor prefill differs from the plain one")
     return dict(s=sec, tokens_s=s / sec, peak=peak)
 
 
+def filled_cache(cfg, b: int, capacity: int, first: int, seed: int):
+    """A serving cache as it stands before position ``first``, from a
+    seed: random K and V in every ring slot, the slots' positions those of
+    the sink and of the last ``ring`` positions before ``first``, a random
+    recurrent state and conv tail."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _slot
+    cache = tf.init_cache(cfg, b, capacity)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for c in cache:
+        if "attn" in c:
+            a, sink = c["attn"], cfg.meta_tokens
+            ring = a["k"].shape[1] - sink
+            pos = torch.cat([torch.arange(min(sink, first)),
+                             torch.arange(max(sink, first - ring), first)])
+            a["k"].normal_(generator=g)
+            a["v"].normal_(generator=g)
+            a["kpos"][_slot(pos, sink, ring).cuda()] = pos.to(
+                torch.int32).cuda()
+        for t in c.get("ssm", {}).values():
+            t.normal_(generator=g)
+    return cache
+
+
 def cell_decode(cfg, dmesh, params, launches: dict) -> dict:
-    """decode_32k at ``CELL_BATCH`` rows over a 32,768-slot cache filled
-    from a seed but for its last ``CELL_DECODE_STEPS`` slots: those steps on
-    DTensors (a warm-up pass, then a timed one), then on plain tensors from
-    the same cache, logits and written slots bit for bit."""
+    """decode_32k at ``CELL_BATCH`` rows over a cache of meta + 32,768
+    positions (a ring of meta + window slots where the model has a window)
+    filled from a seed as it stands before its last ``CELL_DECODE_STEPS``
+    positions: those steps on DTensors (a warm-up pass, then a timed one),
+    each carrying the returned cache, then on plain tensors from the same
+    cache, logits and the final cache bit for bit."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.cells import input_specs, materialize
-    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _slot
     from repro_torch.training.train_loop import make_serve_steps
     b, n = CELL_BATCH["decode_32k"], CELL_DECODE_STEPS
     cell = input_specs(cfg, "decode_32k", dmesh, global_batch=b)
-    sc = 32768
-    first = sc - n
+    cap = cfg.meta_tokens + 32768
+    first = cap - n
+    want = {k: cfg.n_layers * n for k in lm_kernels(cfg, "decode")}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cache = tf.init_cache(cfg, b, sc)
+    cache = filled_cache(cfg, b, cap, first, 18)
     g = torch.Generator(device="cuda").manual_seed(18)
-    for c in cache:
-        for k in ("k", "v"):
-            c["attn"][k][:, :first].normal_(generator=g)
-        c["attn"]["kpos"][:first] = torch.arange(first, dtype=torch.int32,
-                                                 device="cuda")
     toks = torch.randint(0, cfg.vocab, (n, b, 1), generator=g,
                          device="cuda", dtype=torch.int32)
     pos = [torch.tensor(first + i, dtype=torch.int32, device="cuda")
            for i in range(n)]
+    # the ring slots the steps write: kept to put back before each pass,
+    # and with the recurrent state what a pass's final cache is held by
+    slots = [_slot(torch.arange(first, cap, device="cuda"), cfg.meta_tokens,
+                   c["attn"]["k"].shape[1] - cfg.meta_tokens)
+             if "attn" in c else None for c in cache]
+
+    def written(cur):
+        out = []
+        for c, sl in zip(cur, slots):
+            d = {k: t.clone() for k, t in c.get("ssm", {}).items()}
+            if sl is not None:
+                a = c["attn"]
+                d.update({k: (a[k][sl] if k == "kpos" else a[k][:, sl])
+                          .clone() for k in a})
+            out.append(d)
+        return out
+
+    kept = written(cache)
 
     def restore():
-        for c in cache:
-            c["attn"]["k"][:, first:] = 0
-            c["attn"]["v"][:, first:] = 0
-            c["attn"]["kpos"][first:] = -1
+        for c, sl, vals in zip(cache, slots, kept):
+            if sl is not None:
+                a = c["attn"]
+                a["kpos"][sl] = vals["kpos"]
+                a["k"][:, sl] = vals["k"]
+                a["v"][:, sl] = vals["v"]
 
     def dtensor_pass():
-        out = []
+        out, cur = [], cache
         for i in range(n):
-            args = materialize(cell, (params, cache, toks[i], pos[i]))
-            out.append(local(cell.fn(*args)[0]))
-        return out
+            args = materialize(cell, (params, cur, toks[i], pos[i]))
+            logits, cur = cell.fn(*args)
+            out.append(local(logits))
+            cur = [{k: {j: local(t) for j, t in d.items()}
+                    for k, d in c.items()} for c in cur]
+        return out, written(cur)
 
     dtensor_pass()
     restore()
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = dtensor_pass()
+    got, got_state = dtensor_pass()
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t0) / n
     lc = launch_counts()
-    if lc["decode_attention"] != cfg.n_layers * n or any(
-            v for k, v in lc.items() if k != "decode_attention"):
-        raise AssertionError(f"17(b) decode_32k launched {lc}")
+    check_launches(f"17(b) {cfg.name} decode_32k", lc, want)
     add_launches(launches, lc)
     peak = torch.cuda.max_memory_allocated()
-    written = [(c["attn"]["k"][:, first:].clone(),
-                c["attn"]["v"][:, first:].clone()) for c in cache]
     restore()
     _, decode = make_serve_steps(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = [decode(params, cache, tokens=toks[i], pos0=pos[i])[0]
-            for i in range(n)]
+    wanted, cur = [], cache
+    for i in range(n):
+        logits, cur = decode(params, cur, tokens=toks[i], pos0=pos[i])
+        wanted.append(logits)
     torch.cuda.synchronize()
     plain_sec = (time.perf_counter() - t0) / n
-    same = all(torch.equal(a, w) for a, w in zip(got, want)) and all(
-        torch.equal(c["attn"]["k"][:, first:], k) and
-        torch.equal(c["attn"]["v"][:, first:], v)
-        for c, (k, v) in zip(cache, written))
-    cache_gb = sum(c["attn"][k].numel() * c["attn"][k].element_size()
-                   for c in cache for k in ("k", "v")) / 1e9
-    log(f"phase 17(b): decode_32k, batch {b} over {sc} slots "
-        f"({cache_gb:.1f} GB of cache): {sec * 1e3:.2f} ms a step "
-        f"({b / sec:.1f} tok/s; plain tensors {plain_sec * 1e3:.2f} ms), "
-        f"peak memory {peak / 2**30:.2f} GiB, decode_attention "
-        f"{cfg.n_layers} launches a step; DTensor == plain "
-        f"(logits and written slots): {same}")
+    same = same_leaves(got, wanted) and same_leaves(got_state, written(cur))
+    cache_gb = sum(t.numel() * t.element_size() for t in
+                   local_leaves(cache)) / 1e9
+    log(f"phase 17(b): {cfg.name} decode_32k, batch {b} at positions "
+        f"{first}-{cap - 1} ({cache_gb:.2f} GB of cache): "
+        f"{sec * 1e3:.2f} ms a step ({b / sec:.1f} tok/s; plain tensors "
+        f"{plain_sec * 1e3:.2f} ms), peak memory {peak / 2**30:.2f} GiB, "
+        f"launches {want}; DTensor == plain (logits, written slots and "
+        f"recurrent state): {same}")
     if not same:
         raise AssertionError("the DTensor decode differs from the plain one")
-    del cache, written
+    del cache, cur, kept, got_state
     return dict(s=sec, tokens_s=b / sec, peak=peak)
 
 
 def check_prefill_32k_f32(cfg, toks) -> None:
-    """The kernel route against the q-chunked plain route at 32k on the
-    card: f32, 2 layers, last-token logits within 1e-3 of max |logit|."""
+    """The kernel route against the plain route (q-chunked attention,
+    plain GLA) at 32k on the card: f32, 2 layers, last-token logits within
+    1e-3 of max |logit|."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as tf
@@ -2690,12 +2794,60 @@ def check_prefill_32k_f32(cfg, toks) -> None:
             outs[mode] = logits[0, -1]
     rel = float((outs[True] - outs["ref"]).abs().max()
                 / outs["ref"].abs().max())
-    log(f"phase 17(b): prefill_32k f32 at 2 layers, kernel vs q-chunked "
+    log(f"phase 17(b): {cfg.name} prefill_32k f32 at 2 layers, kernel vs "
         f"plain route: last-token logits max |diff| / max |logit| = "
         f"{rel:.3e}")
     if not rel <= 1e-3 or not bool(torch.isfinite(outs[True]).all()):
         raise AssertionError(f"the 32k kernel route differs from the plain "
                              f"route by {rel} of max |logit|")
+
+
+def check_grads_f32(cfg) -> None:
+    """17(d): one ``value_and_grad`` of ``cfg`` at full width, 2 layers,
+    f32, ``GRAD_CHECK`` tokens from a seed, through the kernels' forward
+    (each train kernel twice a layer: the forward and the recompute)
+    against the plain route: the loss and every gradient element within
+    atol 1e-5 + rtol 1e-4, all finite."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(22),
+                            c32)
+    b, s = GRAD_CHECK
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), dtype=torch.int32,
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(23))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for mode in (True, "ref"):
+        reset_launch_counts()
+        (loss, _), grads = value_and_grad(
+            params, dataclasses.replace(c32, use_kernel=mode), batch)
+        torch.cuda.synchronize()
+        check_launches(f"17(d) {cfg.name} use_kernel={mode!r}",
+                       launch_counts(),
+                       {k: 2 * c32.n_layers for k in lm_kernels(cfg, "train")}
+                       if mode is True else {})
+        out[mode] = [loss] + tree_leaves(grads)
+    worst, n = 0.0, 0
+    for got, want in zip(out[True], out["ref"]):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"17(d) {cfg.name}: a non-finite gradient")
+        excess = float(((got - want).abs() / (1e-5 + 1e-4 * want.abs()))
+                       .max())
+        worst, n = max(worst, excess), n + got.numel()
+    log(f"phase 17(d): {cfg.name} f32 value_and_grad at 2 layers, {b} x {s} "
+        f"tokens, kernels vs plain: loss {float(out[True][0]):.6f} vs "
+        f"{float(out['ref'][0]):.6f}; {len(out[True]) - 1} gradients, {n} "
+        f"elements, max |diff| / (1e-5 + 1e-4 |plain|) = {worst:.3f}")
+    if not worst <= 1.0:
+        raise AssertionError(f"17(d) {cfg.name}: gradients differ by "
+                             f"{worst} times the bound")
 
 
 def op_dispatch_cost() -> None:
@@ -2734,50 +2886,59 @@ def op_dispatch_cost() -> None:
         f"24 layers")
 
 
-def phase_cells(launches: dict, dry: DryRuns) -> None:
-    """17: (b) the three cells through ``input_specs`` on the local mesh
-    as DTensors over a one-rank NCCL ``DeviceMesh``, each against the same
-    step on plain tensors; the 32k prefill's f32 check; (c) the custom
-    op's dispatch cost; then (a)'s records beside (b)'s measurements."""
+def phase_cells(launches: dict, dry: DryRuns, archs=CELL_ARCHS) -> None:
+    """17: for each of ``archs``, (b) the three cells through
+    ``input_specs`` on the local mesh as DTensors over a one-rank NCCL
+    ``DeviceMesh``, each against the same step on plain tensors, and the
+    32k prefill's f32 check; (d) the GLA family's f32 gradient check;
+    (c) the custom op's dispatch cost; then (a)'s records beside (b)'s
+    measurements."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import registry
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import device_mesh, make_local_mesh
     from repro_torch.models import transformer as tf
-    cfg = registry.get(SERVE_ARCH)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", rank=0, world_size=1)
+    meas = {}
     try:
         dmesh = device_mesh(make_local_mesh(), "cuda")
-        log(f"phase 17(b): {cfg.name} at full width ({cfg.n_layers} layers, "
-            f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, vocab "
-            f"{cfg.vocab}) on {dmesh}")
-        meas = {"train_4k": cell_train(cfg, dmesh, launches)}
-        torch.cuda.empty_cache()
-        params = tf.init_params(torch.Generator(device="cuda").manual_seed(
-            17), cfg)
-        toks = torch.randint(0, cfg.vocab, (1, 32768), device="cuda",
-                             generator=torch.Generator(
-                                 device="cuda").manual_seed(21),
-                             dtype=torch.int32)
-        meas["prefill_32k"] = cell_prefill(cfg, dmesh, params, toks,
-                                           launches)
-        meas["decode_32k"] = cell_decode(cfg, dmesh, params, launches)
-        del params
-        torch.cuda.empty_cache()
-        check_prefill_32k_f32(cfg, toks)
+        for arch in archs:
+            cfg = registry.get(arch)
+            log(f"phase 17(b): {cfg.name} at full width ({cfg.n_layers} "
+                f"layers, d {cfg.d_model}, family {cfg.family}, vocab "
+                f"{cfg.vocab}) on {dmesh}")
+            meas[(arch, "train_4k")] = cell_train(cfg, dmesh, launches)
+            torch.cuda.empty_cache()
+            params = tf.init_params(torch.Generator(
+                device="cuda").manual_seed(17), cfg)
+            toks = torch.randint(0, cfg.vocab, (1, 32768), device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(21),
+                                 dtype=torch.int32)
+            meas[(arch, "prefill_32k")] = cell_prefill(cfg, dmesh, params,
+                                                       toks, launches)
+            meas[(arch, "decode_32k")] = cell_decode(cfg, dmesh, params,
+                                                     launches)
+            del params
+            torch.cuda.empty_cache()
+            check_prefill_32k_f32(cfg, toks)
+            if "gla_chunk" in lm_kernels(cfg, "train"):
+                check_grads_f32(cfg)
+            torch.cuda.empty_cache()
         op_dispatch_cost()
     finally:
         dist.destroy_process_group()
     recs = dry.records()
-    for shape in CELL_SHAPES:
-        rec = recs[(shape, "single")]
+    for (arch, shape, mesh), rec in recs.items():
+        if mesh != "single":
+            continue
         row = roofline.analyze(rec)
         wire = {k: round(v / 2**20, 1) for k, v in
                 rec["collectives"]["wire_bytes"].items()}
-        log(f"phase 17(a): dry run {SERVE_ARCH}@{shape}@single (256 fake "
+        log(f"phase 17(a): dry run {arch}@{shape}@single (256 fake "
             f"ranks, {rec['run_s']} s): per-device peak "
             f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, arguments "
             f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, flops "
@@ -2788,14 +2949,14 @@ def phase_cells(launches: dict, dry: DryRuns) -> None:
             f"ms, collective {row['t_collective_ms']:.2f} ms, "
             f"{row['bottleneck']}-bound, useful {row['useful_ratio']:.3f}, "
             f"roofline {row['roofline_frac']:.1%}")
-    for shape in CELL_SHAPES:
-        rec, m = recs[(shape, "local")], meas[shape]
+    for (arch, shape), m in meas.items():
+        rec = recs[(arch, shape, "local")]
         bound = max(rec["cost"]["flops"] / roofline.PEAK_FLOPS,
                     rec["cost"]["bytes"] / roofline.HBM_BW)
-        log(f"phase 17: {shape} on one card at batch {CELL_BATCH[shape]}: "
-            f"measured {m['s'] * 1e3:.2f} ms a step, {m['tokens_s']:.1f} "
-            f"tokens/s, peak {m['peak'] / 2**30:.2f} GiB; the dry run's "
-            f"local cell predicts peak "
+        log(f"phase 17: {arch} {shape} on one card at batch "
+            f"{CELL_BATCH[shape]}: measured {m['s'] * 1e3:.2f} ms a step, "
+            f"{m['tokens_s']:.1f} tokens/s, peak {m['peak'] / 2**30:.2f} "
+            f"GiB; the dry run's local cell ({rec['run_s']} s) predicts peak "
             f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, "
             f"{rec['cost']['flops']:.4e} flops, "
             f"{rec['cost']['bytes']:.4e} bytes, a roofline bound of "
@@ -2829,7 +2990,7 @@ def main() -> int:
 
 
 # --- phase 18: fig_realworld ---------------------------------------------------
-REALWORLD_REQUESTS = 2_500    # phase 18's trace, cut from 1,000,000
+REALWORLD_REQUESTS = 1_250    # phase 18's trace, cut from 1,000,000
 
 
 def phase_realworld(launches: dict) -> None:
@@ -2878,11 +3039,11 @@ def phase_realworld(launches: dict) -> None:
 
 
 # --- phase 19: the example modules --------------------------------------------
-EX_QS_REQUESTS = 2_500        # quickstart's trace, cut from 30,000
+EX_QS_REQUESTS = 1_250        # quickstart's trace, cut from 30,000
 EX_MC = 200_000               # quickstart's Monte-Carlo draws, its own n
-EX_TS_REQUESTS = 2_000        # trace_sim's surrogate, cut from 50,000
-EX_HIER_REQUESTS = 1_000      # hierarchy_sim's trace, cut from 30,000
-EX_AB_REQUESTS = 2_000        # serve_engine's A/B, cut from 20,000
+EX_TS_REQUESTS = 1_000        # trace_sim's surrogate, cut from 50,000
+EX_HIER_REQUESTS = 500        # hierarchy_sim's trace, cut from 30,000
+EX_AB_REQUESTS = 1_000        # serve_engine's A/B, cut from 20,000
 EX_TRAIN_STEPS = 10           # train_small, cut from 200; preempted at 5
 EX_SKIP = ("route", "trainer", "where", "wall_s", "tok_s", "first_call_s",
            "later_tok_s", "tokens_s")
@@ -3206,9 +3367,9 @@ def run_phases(args, t0, dry) -> int:
     import torch
     phase_s = {}
 
-    def timed(name, fn, *a):
+    def timed(name, fn, *a, **kw):
         t = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         phase_s[name] = round(time.perf_counter() - t, 1)
         log(f"phase {name}: {phase_s[name]} s")
         return out
@@ -3219,12 +3380,11 @@ def run_phases(args, t0, dry) -> int:
     launches, grids = {}, {}
     timed("2", phase_paper, launches)
     timed("3", phase_deploy, args.requests, launches)
-    timed("5", phase_serve, 5, SERVE_ARCH, launches, ("flash_attention",),
-          ("decode_attention",))
+    timed("5", phase_serve, 5, SERVE_ARCH, launches)
     gla = timed("6", phase_gla)
     timings["gla_chunk"] = gla["xlstm-350m"]
-    timed("7", phase_serve, 7, "xlstm-350m", launches, ("gla_chunk",), ())
-    timed("8", phase_hymba, launches)
+    timed("7", phase_serve, 7, "xlstm-350m", launches)
+    timed("8", phase_serve, 8, "hymba-1.5b", launches, max_new=HYMBA_NEW)
     timed("9a", phase_grid_fig2, launches, grids)
     timed("9b", phase_grid_deploy, GRID_REQUESTS, launches)
     timed("10", phase_stream, launches, grids)

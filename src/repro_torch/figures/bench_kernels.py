@@ -17,10 +17,10 @@ On the CPU (``device="cpu"``) the wrappers run their plain versions, so
 only ``plain_us`` and ``library_us`` are measured (host clock), at small
 shapes, and ``us`` is None.
 
-Shapes on the card: the ranking kernels and the serve's lane-scatter
-write at N = 100 (fig2's table) and 2^20 (the deployment table), the
-point-update journal's flush of 1, 4, 16 and 256 ops over 1 and 18 lanes
-at both; the attention
+Shapes on the card: the ranking kernels at N = 100 (fig2's table) and
+2^20 (the deployment table), the point-update journal's flush of 1, 4,
+16 and 256 ops over 1 and 18 lanes at both; the lane scatter at the
+serving flush (4 objects into the mirror of 4,096 and 2^18); the attention
 kernels at StableLM-2-1.6B's (B 1, 32 heads of 64, 2048 tokens) and
 Hymba-1.5B's shapes (25 q / 5 KV heads of 64, window 1024, a 128-token
 sink); ``gla_chunk`` at xLSTM-350M's and Hymba-1.5B's prefill, bf16.
@@ -40,6 +40,11 @@ F32_FLOPS = 67e12             # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the deployment table
+# the serving engine's mirror tables (its default and the 2^18-object
+# prefix table of chip_smoke.py's phase 13(b)) and the objects a flush
+# writes (13(b)'s mean, 3.97-4.03)
+FLUSH_TABLES = (4096, 1 << 18)
+FLUSH_OBJECTS = 4
 
 
 def time_ms(fn, reps: int = 100, device="cuda") -> float:
@@ -134,67 +139,68 @@ def time_ranking(dev, sizes=(100, N_DEPLOY), reps=100) -> list[dict]:
     return rows
 
 
-def time_lane_scatter(dev, sizes=(100, N_DEPLOY), reps=100) -> list[dict]:
-    """The serve's write (12 f32 fields x 2 lanes and 2 flags x 2 lanes)
-    as one ``lane_scatter_batch`` call over each N of ``sizes``; at the
-    largest N also as two single launches, in the 32 KB parameter block,
-    on the host clock, and as two ``index_put_`` (the library call)."""
+def time_lane_scatter(dev, sizes=FLUSH_TABLES, reps=100) -> list[dict]:
+    """The serving flush (``serving.engine.DelayedHitPrefixCache.flush``,
+    the one path that launches the lane scatter): ``FLUSH_OBJECTS``
+    objects written into the device mirror, each one write of its 9 f32
+    rows into ``[9, N]`` and one of its 2 flags into ``[2, N]``, as one
+    ``lane_scatter_batch`` call over each N of ``sizes``; as two
+    ``index_put_`` (the library call); and at the largest N one batch call
+    on the host clock."""
     from ..kernels import ref
-    from ..kernels.lane_scatter import lane_scatter_batch, lane_scatter_set
+    from ..kernels.lane_scatter import lane_scatter_batch
     rng = np.random.default_rng(7)
+    k = FLUSH_OBJECTS
 
-    def serve_write(n_w):
-        vals = torch.zeros((24, n_w), dtype=torch.float32, device=dev)
-        flags = torch.zeros((4, n_w), dtype=torch.bool, device=dev)
-        return [(vals, rng.integers(0, n_w, 24), rng.random(24, np.float32),
-                 None, False),
-                (flags, rng.integers(0, n_w, 4), rng.random(4) < 0.5, None,
-                 False)]
+    def flush_writes(n):
+        vals = torch.zeros((9, n), dtype=torch.float32, device=dev)
+        flags = torch.zeros((2, n), dtype=torch.bool, device=dev)
+        writes = []
+        for i in rng.choice(n, k, replace=False).tolist():
+            writes.append((vals, np.full(9, i, np.int32),
+                           rng.random(9, np.float32), None, False))
+            writes.append((flags, np.full(2, i, np.int32),
+                           rng.random(2) < 0.5, None, False))
+        return writes
 
     # each row's index and value read, its element written
-    bound = (24 * (4 + 4 + 4) + 4 * (4 + 4 + 1)) / HBM_BYTES_PER_S * 1e3
-    how = "24 f32 rows x (4 + 4 + 4) B + 4 bool rows x (4 + 4 + 1) B"
+    bound = k * (9 * (4 + 4 + 4) + 2 * (4 + 4 + 1)) / HBM_BYTES_PER_S * 1e3
+    how = (f"{k} objects x (9 f32 rows x (4 + 4 + 4) B + 2 bool rows x "
+           f"(4 + 4 + 1) B)")
     rows = []
     for n in sizes:
-        serve = serve_write(n)
-        extra, lib = {}, None
-        if n == max(sizes):
-            ops = [(x, torch.as_tensor(i, dtype=torch.int32, device=dev),
-                    torch.as_tensor(v, device=dev),
-                    torch.arange(x.shape[0], device=dev))
-                   for x, i, v, _, _ in serve]
+        writes = flush_writes(n)
+        # the library call: one index_put_ a mirror tensor, its (row,
+        # column) pairs and values gathered from the flush's writes
+        ops = []
+        for x in (writes[0][0], writes[1][0]):
+            mine = [w for w in writes if w[0] is x]
+            ops.append((x, torch.as_tensor(np.concatenate(
+                [np.arange(x.shape[0]) for _ in mine]), device=dev),
+                torch.as_tensor(np.concatenate([w[1] for w in mine]),
+                                dtype=torch.long, device=dev),
+                torch.as_tensor(np.concatenate([w[2] for w in mine]),
+                                device=dev)))
 
-            def library():
-                for x, i, v, r in ops:
-                    x.index_put_((r, i.long()), v)
+        def library():
+            for x, r, i, v in ops:
+                x.index_put_((r, i), v)
 
-            def singles():
-                for x, i, v, _ in ops:
-                    lane_scatter_set(x, i, v)
-
-            lib = time_ms(library, reps, dev)
-            if dev.type == "cuda":
-                # 130 skipped rows of padding: too large for the 512 B
-                # parameter block, so the 32 KB variant runs
-                pad = torch.zeros((130, 1), device=dev)
-                padded = serve + [(pad, np.full(130, -1),
-                                   np.zeros(130, np.float32), None, False)]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(1000):
-                    lane_scatter_batch(serve)
-                torch.cuda.synchronize()
-                extra = dict(
-                    singles_us=time_ms(singles, reps, dev) * 1e3,
-                    param32k_us=time_ms(lambda: lane_scatter_batch(padded),
-                                        reps, dev) * 1e3,
-                    host_call_us=(time.perf_counter() - t0) * 1e3)
+        extra = {}
+        if dev.type == "cuda" and n == max(sizes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                lane_scatter_batch(writes)
+            torch.cuda.synchronize()
+            extra["host_call_us"] = (time.perf_counter() - t0) * 1e3
         rows.append(_row(
-            "lane_scatter", f"the serve's write, N={n}", dev,
-            _kernel_ms(dev, lambda: lane_scatter_batch(serve), reps),
-            time_ms(lambda: ref.lane_scatter_batch_ref(serve), reps, dev),
-            bound, "bytes", how, "2 x index_put_" if lib is not None
-            else None, lib, n=n, **extra))
+            "lane_scatter", f"the serving flush of {k} objects, N={n}", dev,
+            _kernel_ms(dev, lambda: lane_scatter_batch(writes), reps),
+            time_ms(lambda: ref.lane_scatter_batch_ref(writes), reps, dev),
+            bound, "bytes", how, "2 x index_put_",
+            time_ms(library, reps, dev), n=n, main=(n == max(sizes)),
+            **extra))
     return rows
 
 
@@ -678,8 +684,8 @@ def run(device=None) -> list[dict]:
         sizes, reps = (100, N_DEPLOY), 100
     else:
         sizes, reps = (100, 4096), 5
-    rows = (time_ranking(dev, sizes, reps) + time_lane_scatter(dev, sizes,
-                                                                reps)
+    rows = (time_ranking(dev, sizes, reps)
+            + time_lane_scatter(dev, reps=reps)
             + time_point_update(dev, sizes, reps)
             + time_attention(dev) + time_gla(dev))
     write_bench_json("bench_kernels.json", dict(

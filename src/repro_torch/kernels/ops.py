@@ -196,7 +196,11 @@ def _gla_backward(ctx, gy, gs, gn):
         it = iter(tensors)
         full = [next(it) if h else None for h in has]
         got = gla_plain_grads(*full, tuple(grads_out), need, **ctx.opts)
-        return tuple(torch.zeros_like(t) if g is None else g.contiguous()
+        # in the plain version's layout, as on plain tensors: the ops
+        # after them then take the same code paths (a CPU softplus
+        # backward rounds otherwise on a contiguous tensor than on a
+        # strided one), so DTensor steps equal plain ones bit for bit
+        return tuple(torch.zeros_like(t) if g is None else g
                      for t, g in zip(full, got) if t is not None)
 
     # an output the loss does not use gets a plain zero gradient of the

@@ -229,26 +229,66 @@ def _cached_redistribute_plans():
 
 
 def _strided_shard_outside_fake():
-    """DTensor sizes a strided shard (a sequence-sharded residual flattened
-    into a product's rows) with a small index tensor it reads back; under
-    ``FakeTensorMode`` that read has no value, so the dry run makes that
-    tensor a real one."""
+    """DTensor sizes a strided shard (a sequence-sharded residual, or a
+    batch-sharded one, flattened into a product's rows) by splitting an
+    index tensor and reading it back; under ``FakeTensorMode`` that read
+    has no value, and outside it the split costs ~70 ms a call (xLSTM's
+    train_4k on the multi-pod mesh makes tens of thousands of them).  The
+    dry run computes the same sizes and offsets in closed form
+    (:func:`strided_shard_size_and_offset`), and runs DTensor's own code
+    outside fake mode where it cannot (a symbolic size or rank, or a
+    PyTorch without offset modes)."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor import placement_types
     cls = getattr(placement_types, "_StridedShard", None)
     fn = getattr(cls, "local_shard_size_and_offset", None)
     if fn is None or getattr(fn, "_outside_fake", False):
         return
+    static = isinstance(cls.__dict__.get("local_shard_size_and_offset"),
+                        staticmethod)
+    modes = getattr(placement_types, "_StridedShardOffsetMode", None)
 
     def sized(*a, **kw):
+        # (self, size, chunks, rank[, offset_mode]) as DTensor passes them
+        if not static and modes is not None and 4 <= len(a) <= 5 \
+                and not kw and hasattr(a[0], "_split_factor_int") \
+                and all(type(x) is int for x in a[1:4]):
+            mode = modes(a[4] if len(a) == 5 else modes.FIRST)
+            return strided_shard_size_and_offset(
+                a[1], a[0]._split_factor_int(), a[2], a[3],
+                mode.name.lower())
         with unset_fake_temporarily():
             return fn(*a, **kw)
 
     sized._outside_fake = True
-    if isinstance(cls.__dict__.get("local_shard_size_and_offset"),
-                  staticmethod):
+    if static:
         sized = staticmethod(sized)
     cls.local_shard_size_and_offset = sized
+
+
+def strided_shard_size_and_offset(size: int, split_factor: int,
+                                  chunks: int, rank: int,
+                                  mode: str = "first"):
+    """``_StridedShard.local_shard_size_and_offset`` in closed form: the
+    dim of ``size`` is chunked (``torch.chunk``'s ceil-sized pieces) into
+    ``split_factor`` pieces, each of those into ``chunks``, and ``rank``
+    holds its piece of every one.  Returns (its size, its first index or
+    -1 if it has none), (size, every index) or (size, None) for the
+    ``mode`` "first", "all" or "none"."""
+    first = -(-size // split_factor)
+    n, idx = 0, []
+    for j in range(split_factor):
+        lo, hi = min(first * j, size), min(first * (j + 1), size)
+        second = -(-(hi - lo) // chunks)
+        a, b = min(second * rank, hi - lo), min(second * (rank + 1), hi - lo)
+        n += max(0, b - a)
+        if b > a and (mode == "all" or not idx):
+            idx.extend(range(lo + a, lo + b))
+    if mode == "none":
+        return n, None
+    if mode == "all":
+        return n, idx
+    return n, idx[0] if idx else -1
 
 
 def _local(x):

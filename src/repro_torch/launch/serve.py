@@ -1,5 +1,5 @@
 """Serving entry point of the port: continuous batching over a model with
-random weights (the dense-block and MoE families and xLSTM).
+random weights (the dense-block, MoE, xLSTM and Hymba families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --device cpu                       # tiny, on the CPU
@@ -7,6 +7,8 @@ random weights (the dense-block and MoE families and xLSTM).
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b
                                                    # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -15,10 +17,11 @@ random weights (the dense-block and MoE families and xLSTM).
 ``--layers`` cuts the depth of a config (phi3.5-MoE's 32 layers are about
 84 GB in bf16, more than one 80 GB card holds).
 
-A config with meta tokens (Hymba) is refused: the batcher, like the JAX
-package's, decodes at the prompt's length and leaves out the meta-token
-offset that ``forward`` counts in ``pos0``; drive such a model through
-``make_serve_steps`` at ``pos0 = meta + S + i`` instead.
+A config with meta tokens (Hymba) is served with the batcher's position
+offset set to ``cfg.meta_tokens``: its caches hold the meta tokens beside
+the prompt and the new tokens, and it decodes at ``pos0 = meta + S + i``,
+the positions ``forward`` counts.  (The JAX package's batcher has no
+offset, so its serve script decodes Hymba at the wrong positions.)
 
 Without ``--device`` it runs on the card and raises if there is none.
 Prompts of 4-15 tokens come from ``numpy.random.default_rng(0)``, as in
@@ -70,12 +73,6 @@ def serve(cfg, params, prompts, max_new: int, *, device=None) -> dict:
         raise ValueError(f"{cfg.name} has {cfg.out_heads} codebook heads: "
                          f"the scheduler's greedy argmax feeds back one "
                          f"token id, which only a single head defines")
-    if cfg.meta_tokens:
-        raise ValueError(f"{cfg.name} prepends {cfg.meta_tokens} meta "
-                         f"tokens: the batcher decodes at the prompt's "
-                         f"length without that offset (and sizes its cache "
-                         f"without it), so its logits would be wrong; call "
-                         f"the serve steps with pos0 = meta + S + i")
     dev = resolve_device(device)
     prefill, decode = make_serve_steps(cfg)
     spent = {"prefill": 0.0, "decode": 0.0}
@@ -100,7 +97,7 @@ def serve(cfg, params, prompts, max_new: int, *, device=None) -> dict:
         decode_step=timed("decode", lambda c, t, p: decode(
             params, c, tokens=t, pos0=p)),
         init_cache=lambda b, cap: tf.init_cache(cfg, b, cap, dev),
-        device=dev)
+        device=dev, pos_offset=cfg.meta_tokens)
     reqs = [Request(rid=i, tokens=np.asarray(p), max_new=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:

@@ -52,6 +52,23 @@ def split_heads(t: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], n, d_head)
 
 
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, d_head) -> (..., n * d_head).  A DTensor whose heads are
+    split by a mesh dim whose size does not divide ``n`` (Hymba's 25 Mamba
+    heads over a 16-wide ``model`` axis, as a decode step's state update
+    leaves them) is gathered over that mesh dim first: DTensor cannot
+    flatten an uneven split."""
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, h = t.device_mesh, t.dim() - 2
+        want = [Replicate() if isinstance(p, Shard) and p.dim == h
+                and t.shape[h] % mesh.size(i) else p
+                for i, p in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(mesh, want)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings.  Half-split convention (LLaMA); applied in f32.
 # ---------------------------------------------------------------------------

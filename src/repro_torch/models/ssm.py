@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.ref import gla_chunk_plain
-from .layers import init_dense, split_heads
+from .layers import init_dense, merge_heads, split_heads
 
 # Parameter leaves created in f32 whatever the model's dtype (the gate and
 # step-size projections, the SSD decay and skip, the hybrid mixing scalars,
@@ -83,10 +83,12 @@ def gla_decode_step(q, k, v, log_f, log_i, state, *, normalize: bool = True):
     S = f[..., None] * S + (i * kf)[..., None] * v.float()[..., None, :]
     n = f * n + i * kf
     qf = q.float() * dk ** -0.5
-    y = torch.einsum("bhk,bhkv->bhv", qf, S)
+    # the contractions as products and sums over k, which a DTensor state
+    # split over batch and heads runs shard by shard (an einsum flattens
+    # (b, h) into a matmul's batch, which DTensor refuses for split dims)
+    y = (qf[..., None] * S).sum(-2)
     if normalize:
-        den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", qf, n)),
-                          min=1.0)
+        den = torch.clamp(torch.abs((qf * n).sum(-1)), min=1.0)
         y = y / den[..., None]
     return y.to(q.dtype), (S, n)
 
@@ -161,7 +163,7 @@ def mlstm_apply(p, x, *, n_heads: int, state=None, conv_tail=None,
     else:
         y, state = chunked_gla(q, k, v, log_f, log_i, chunk=chunk,
                                init_state=state, use_kernel=use_kernel)
-    y = y.reshape(b, s, di) + xc * p["skip"]
+    y = merge_heads(y) + xc * p["skip"]
     out = (y * F.silu(z)) @ p["w_down"]
     return out, (state, conv_tail)
 
@@ -213,7 +215,7 @@ def mamba_apply(p, x, *, n_heads: int, d_state: int, state=None,
                                normalize=False, init_state=state,
                                use_kernel=use_kernel)
     # the skip per head (v is xc split into heads)
-    y = (y + v * p["d_skip"][:, None].to(xc.dtype)).reshape(b, s, d_inner)
+    y = merge_heads(y + v * p["d_skip"][:, None].to(xc.dtype))
     out = (y * F.silu(z)) @ p["w_out"]
     return out, (state, conv_tail)
 

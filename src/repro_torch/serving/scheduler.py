@@ -8,6 +8,12 @@ logits.  The scheduler only calls the (prefill_step, decode_step,
 init_cache) closures it is given, e.g. those of
 :func:`repro_torch.training.train_loop.make_serve_steps`; token ids are
 placed on ``device`` (None: the card).
+
+``pos_offset`` counts the positions a model puts before every prompt (a
+hybrid model's meta tokens, ``cfg.meta_tokens``): a request's cache then
+holds ``pos_offset + prompt + max_new + 1`` positions and its first decode
+runs at ``pos0 = pos_offset + prompt``, as ``forward`` counts them.  At 0,
+the default, the batcher is the JAX package's, which has no offset.
 """
 from __future__ import annotations
 
@@ -41,13 +47,14 @@ class ContinuousBatcher:
 
     def __init__(self, scfg: SchedulerConfig, *, prefill_step: Callable,
                  decode_step: Callable, init_cache: Callable,
-                 eos_id: int = -1, device=None):
+                 eos_id: int = -1, device=None, pos_offset: int = 0):
         self.cfg = scfg
         self.prefill_step = prefill_step
         self.decode_step = decode_step
         self.init_cache = init_cache
         self.eos_id = eos_id
         self.device = resolve_device(device)
+        self.pos_offset = pos_offset
         self.waiting: deque[Request] = deque()
         self.active: list[dict] = []     # {req, cache, pos}
 
@@ -62,12 +69,12 @@ class ContinuousBatcher:
     def _start_one(self) -> None:
         req = self.waiting.popleft()
         toks = self._ids(req.tokens[None, :])
-        cache = self.init_cache(1, toks.shape[1] + req.max_new + 1)
+        pos = self.pos_offset + toks.shape[1]
+        cache = self.init_cache(1, pos + req.max_new + 1)
         logits, cache = self.prefill_step(cache, {"tokens": toks})
         nxt = int(torch.argmax(logits[0, -1]))
         req.out.append(nxt)
-        self.active.append({"req": req, "cache": cache,
-                            "pos": toks.shape[1]})
+        self.active.append({"req": req, "cache": cache, "pos": pos})
 
     def step(self) -> int:
         """One scheduler tick; returns number of completed requests."""

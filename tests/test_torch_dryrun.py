@@ -1,9 +1,9 @@
 """The port's dry run (``repro_torch.launch.dryrun``) and roofline
 (``repro_torch.launch.roofline``) against the JAX package on the CPU.
 
-- Smoke-size dense, MoE and hybrid configs traced on fake worlds of 16
-  ranks (a 4x4 ``(data, model)`` mesh) and 8 ranks (2x2x2 ``(pod, data,
-  model)``), one subprocess a cell with a time limit (a process group is
+- Smoke-size dense, MoE, hybrid and xLSTM configs traced on fake worlds
+  of 16 ranks (a 4x4 ``(data, model)`` mesh) and 8 ranks (2x2x2 ``(pod,
+  data, model)``), one subprocess a cell with a time limit (a process group is
   process-global): each ``ok``, its argument bytes the planner's local
   shard bytes, the collectives it needs present.
 - The ring model against JAX's ``parse_collectives`` on the same (kind,
@@ -39,7 +39,9 @@ SMOKE = [("stablelm-1.6b", "train_4k", "4x4"),
          ("hymba-1.5b", "prefill_32k", "4x4"),
          ("stablelm-1.6b", "prefill_32k", "2x2x2"),
          ("phi3.5-moe-42b-a6.6b", "decode_32k", "2x2x2"),
-         ("hymba-1.5b", "prefill_32k", "2x2x2")]
+         ("hymba-1.5b", "prefill_32k", "2x2x2"),
+         ("hymba-1.5b", "decode_32k", "4x4"),
+         ("xlstm-350m", "decode_32k", "2x2x2")]
 BATCH = 8          # the smoke cells' global batch (divides every DP size)
 
 
@@ -212,3 +214,47 @@ def test_table_and_load_all_read_records(tmp_path):
     assert [r["ok"] for r in rows] == [True, False]
     text = roofline.table(rows)
     assert "stablelm-1.6b | train_4k |" in text and "grok" not in text
+
+
+@pytest.mark.parametrize("split_factor", [1, 2, 3, 16, 256])
+@pytest.mark.parametrize("chunks", [1, 2, 3, 16])
+def test_strided_shard_sizes_equal_dtensors(split_factor, chunks):
+    """The dry run's closed-form strided-shard size and offsets equal
+    DTensor's own (an index tensor split and read back) for every rank and
+    offset mode, on even, ragged and empty dims."""
+    from torch.distributed.tensor import placement_types
+    fn = placement_types._StridedShard.local_shard_size_and_offset
+    assert not getattr(fn, "_outside_fake", False)    # DTensor's own
+    modes = placement_types._StridedShardOffsetMode
+    for size in (0, 1, 5, 17, 48, 4096, 4099):
+        for dim in (0, 1):
+            p = placement_types._StridedShard(dim, split_factor=split_factor)
+            for rank in range(chunks):
+                for mode in modes:
+                    want = p.local_shard_size_and_offset(size, chunks, rank,
+                                                         mode)
+                    got = dryrun.strided_shard_size_and_offset(
+                        size, split_factor, chunks, rank, mode.name.lower())
+                    assert tuple(got) == tuple(want), (size, dim, rank, mode)
+
+
+def test_hymba_decode_cell_with_heads_split_unevenly():
+    """Hymba's decode cell at full width (one layer) on a 4x4 fake world:
+    its 25 Mamba heads split unevenly over the 4-wide ``model`` axis after
+    the decode step's state update, and ``merge_heads`` gathers them
+    before the flatten that DTensor refuses for an uneven split."""
+    code = textwrap.dedent("""
+        import dataclasses, json
+        from repro_torch.configs import registry
+        from repro_torch.launch.dryrun import dry_run
+        from repro_torch.launch.mesh import AbstractMesh
+        cfg = dataclasses.replace(registry.get("hymba-1.5b"), n_layers=1)
+        rec = dry_run(cfg, "decode_32k",
+                      AbstractMesh(("data", "model"), (4, 4)),
+                      global_batch=8)
+        print(json.dumps(rec["collectives"]["counts"]))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1])["all-gather"] > 0

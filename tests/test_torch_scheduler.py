@@ -181,14 +181,6 @@ def test_serve_cli_xlstm_on_cpu(capsys):
         capsys.readouterr().out
 
 
-def test_serve_rejects_meta_tokens():
-    """The batcher decodes at the prompt's length, without the meta-token
-    offset that forward counts, so serve() refuses Hymba."""
-    cfg, params = serve_cli.build("hymba-1.5b", smoke=True, device="cpu")
-    with pytest.raises(ValueError, match="meta"):
-        serve_cli.serve(cfg, params, [np.array([1, 2])], 2, device="cpu")
-
-
 def test_serve_rejects_multi_head_outputs():
     cfg, params = serve_cli.build("musicgen-large", smoke=True, device="cpu")
     with pytest.raises(ValueError, match="codebook heads"):

@@ -49,8 +49,8 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    ``scaled_dot_product_attention``;
 5. the LM serve path at full width: ``stablelm-1.6b`` (24 layers, d 2048,
    bf16, random weights from a seed) behind a ``ContinuousBatcher``
-   (max_batch 4, 8 requests of 512-2048 prompt tokens, 32 new tokens
-   each) through the kernels, the same requests through the plain
+   (max_batch 4, 8 requests of 512-2048 prompt tokens, ``SERVE_NEW`` = 16
+   new tokens each, cut from 32) through the kernels, the same requests through the plain
    versions (both after an untimed warm-up of both on the same
    prompts), and an f32 check of prefill and teacher-forced decode logits
    of the kernel path against the plain path;
@@ -71,7 +71,7 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    ``ContinuousBatcher`` as in phase 5, its position offset the 128 meta
    tokens (caches of meta + prompt + new + 1 positions, cut to the
    1,152-slot ring; decode at ``pos0 = meta + S + i``), ``HYMBA_NEW`` =
-   8 new tokens a request (cut from phase 5's 32), through
+   8 new tokens a request (cut from 32), through
    ``gla_chunk`` and ``flash_attention`` (once a layer a prompt) and
    ``decode_attention`` (once a layer a decoded token) and through their
    plain versions, and the f32 check on two prompts that pack the ring.
@@ -181,32 +181,54 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    size: a full-width one would be ~40 GB);
 17. the sharding layer: (a) started right after the build and run on the
    CPU beside phases 1-16 (two subprocesses at a time, no card visible):
-   ``repro_torch.launch.dryrun`` of ``stablelm-1.6b``, ``xlstm-350m`` and
-   ``hymba-1.5b`` at train_4k, prefill_32k and decode_32k on one device
-   at ``CELL_BATCH`` (1 x 1), and StableLM's on the single production
-   mesh too (16 x 16, a fake world of 256 ranks); each production
-   record's per-device peak, flops, wire bytes by kind and its roofline
-   row printed; (b) for each of the three models, the same three cells
-   through ``launch.cells.input_specs`` on ``make_local_mesh()`` as
-   DTensors over a one-rank NCCL ``DeviceMesh``, from a seed at full
-   width, cut only in batch (``CELL_BATCH``: train 4 x 4,096 tokens for
-   ``CELL_TRAIN_STEPS`` steps, each train kernel (``flash_attention``,
-   ``gla_chunk``) twice a layer a step; a 32,768-token prefill, each
-   prefill kernel once a layer; decode at batch 8 at the last
-   ``CELL_DECODE_STEPS`` positions of meta + 32,768 (StableLM's
-   32,768-slot cache is 51.5 GB, Hymba's a 1,152-slot ring and a GLA
+   ``repro_torch.launch.dryrun`` of every cell of ``CELL_PLAN`` on one
+   device (1 x 1) at the depth and batch the card runs it
+   (``--layers``, ``--global-batch``), and StableLM's three cells on the
+   single production mesh too (16 x 16, a fake world of 256 ranks); each
+   production record's per-device peak, flops, wire bytes by kind and its
+   roofline row printed; (b) the cells of ``CELL_PLAN`` through
+   ``launch.cells.input_specs`` on ``make_local_mesh()`` as DTensors over
+   a one-rank NCCL ``DeviceMesh``, from a seed at full width:
+   StableLM-2-1.6B, xLSTM-350M and Hymba-1.5B at train_4k, prefill_32k
+   and decode_32k, and xLSTM's and Hymba's long_500k; MusicGen-large
+   (``audio``: ``embeds`` in, four codebook heads out) and
+   LLaVA-NeXT-Mistral-7B (``vlm``: ``embeds`` in) at the same three;
+   phi3.5-MoE at the three and Grok-1 (8 GeGLU experts, top 2, attention
+   softcap 30) at prefill_32k and decode_32k.  A train cell takes 4 x
+   4,096 tokens (or embeddings, ``batch_at`` with the config's frontend)
+   for ``CELL_TRAIN_STEPS`` steps at a peak learning rate of 3e-4
+   (``CELL_LR``: MusicGen's 48 layers step at 5e-5, where at 3e-4 their
+   loss rose over the four steps), each train kernel
+   (``flash_attention``, ``gla_chunk``) twice a layer a step; a prefill 32,768 positions, each
+   prefill kernel once a layer; a decode shape its rows at the last
+   ``CELL_DECODE_STEPS`` positions of meta + 32,768 (decode_32k) or meta
+   + 524,288 (long_500k, batch 1) over a cache filled from a seed
+   (StableLM's 32,768-slot cache is 51.5 GB at 8 rows, MusicGen's 51.5
+   GB at 4, LLaVA's 34.4 GB at 8; Hymba's is a 1,152-slot ring and a GLA
    state, xLSTM's a GLA state), ``decode_attention`` once a layer a step
-   where the model has attention), each against the same steps on plain
-   tensors bit for bit (losses and parameters; logits and every cache
-   leaf), and the 32k prefill's kernel route against the plain route
-   (q-chunked attention, plain GLA) in f32 at 2 layers (last-token logits
-   within 1e-3 of max |logit|); measured peak memory, step time and
-   tokens/s printed beside the local dry run's prediction and its
-   roofline bound; (c) the custom op's host cost a call over the kernel
-   wrapper's at phase 5's decode shape; (d) for xLSTM and Hymba, one f32
-   ``value_and_grad`` at full width, 2 layers, ``GRAD_CHECK`` = 2 x 512
-   tokens, through the kernels' forward against the plain route: the
-   loss and every gradient element within atol 1e-5 + rtol 1e-4;
+   where the model has attention; each cell against the same steps on
+   plain tensors bit for bit (losses and parameters; logits and every
+   cache leaf), and the 32k prefill's kernel route against the plain
+   route (q-chunked attention, plain GLA) in f32 at 2 layers (Grok-1 at
+   ``F32_LAYERS`` = 1: two of its layers' f32 weights are 45.8 GB, and
+   the 32k prefill's f32 expert activations ~32 GB more) (last-token
+   logits within 1e-3 of max |logit|);
+   measured peak memory, step time and tokens/s printed beside the local
+   dry run's prediction and its roofline bound; (c) the custom op's host
+   cost a call over the kernel wrapper's at phase 5's decode shape; (d)
+   for ``GRAD_ARCHS`` (xLSTM, Hymba, MusicGen through its four-head
+   loss), one f32 ``value_and_grad`` at full width, 2 layers,
+   ``GRAD_CHECK`` = 2 x 512 tokens, through the kernels' forward against
+   the plain route: the loss and every gradient element within atol 1e-5
+   + rtol 1e-4.  Depth and batch cuts (``CELL_PLAN``): MusicGen decodes 4
+   rows (8 would need 103 GB of cache); LLaVA trains 4 of its 32 layers
+   (7.2 B parameters' AdamW state is ~116 GB); phi3.5-MoE serves 8 of 32
+   layers (phase 15's cut) and trains 1 (at 16(b)'s 2 the dry run
+   predicts a 68.71 GiB peak, and the card's peaks ran 8-13 GiB over it
+   where the plain attention backward forms its scores); Grok-1 serves 2
+   of 64 layers (4.8 B parameters a layer) and has no train cell (one
+   layer's AdamW state is ~78 GB); every other cell runs at its config's
+   depth;
 18. ``fig_realworld``: ``repro_torch.figures.fig_realworld.run`` at
    ``REALWORLD_REQUESTS`` requests (cut from its 1,000,000, which takes
    a 3000 s call of its own: ``figures.run --only realworld``) with every
@@ -296,6 +318,13 @@ host-bound replays were halved: ``SLOT_PREFIX`` 2,500 -> 1,250,
 -> 625 / 312 / 250, ``REALWORLD_REQUESTS`` 2,500 -> 1,250, and
 ``HYMBA_NEW`` 16 -> 8.  Phases 2 and 9(a), which hold the eq.-17 bands,
 and phase 10's stream (two chunks of 4096) keep their depths.
+
+Phase 17's cells of MusicGen-large, LLaVA-NeXT-Mistral-7B, phi3.5-MoE and
+Grok-1 and the long_500k cells add card work (the phase took 122-142 s
+with three models), so the serve phases decode ``SERVE_NEW`` = 16 tokens a
+request (phases 5, 7 and 15, and phase 15's profiled request, cut from
+32; phase 15's profile alone took 26.2 s) and ``REALWORLD_REQUESTS``
+1,250 -> 625.
 
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
@@ -831,6 +860,7 @@ def phase_deploy(n_requests: int, launches: dict) -> None:
 # --- phases 4-5: the LM serve path --------------------------------------------
 SERVE_ARCH = "stablelm-1.6b"
 HYMBA_NEW = 8                 # phase 8's new tokens a request, cut from 32
+SERVE_NEW = 16                # phases 5 and 15's, cut from 32
 
 
 def bf16_ulp_excess(got, want):
@@ -2167,18 +2197,19 @@ def phase_moe_serve(launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, params, prompts, run = phase_serve(
-        15, MOE_ARCH, launches, n_layers=MOE_LAYERS, f32_check=False)
+        15, MOE_ARCH, launches, n_layers=MOE_LAYERS, f32_check=False,
+        max_new=SERVE_NEW)
     t1 = time.perf_counter()
-    # the idle share of one request (prefill and 31 decodes): its
+    # the idle share of one request (prefill and 15 decodes): its
     # unprofiled wall against the device time of the same work profiled
     # (the profiler's own cost is ~20 s a request)
     few = prompts[:1]
     torch.cuda.synchronize()
     tw = time.perf_counter()
-    serve(cfg, params, few, 32)
+    serve(cfg, params, few, SERVE_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tw
-    busy = profiled_busy(lambda: serve(cfg, params, few, 32))
+    busy = profiled_busy(lambda: serve(cfg, params, few, SERVE_NEW))
     t2 = time.perf_counter()
     log(f"phase 15: {cfg.name} ({cfg.n_experts} experts of d_ff "
         f"{cfg.d_ff}, top-{cfg.top_k}): prefill "
@@ -2421,25 +2452,61 @@ def phase_train(launches: dict) -> None:
 
 
 # --- phase 17: the LM cells through the sharding layer ----------------------
-CELL_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
-# StableLM on the production mesh and on one device; the GLA family's
-# (xLSTM-350M, Hymba-1.5B) on one device only, beside the host-bound phases
-CELL_ARCHS = (SERVE_ARCH, "xlstm-350m", "hymba-1.5b")
-# one device's batch of each cell: train 4 x 4,096 tokens, a 32k prefill of
-# one sequence, and decode_32k's 128 over the 16-wide data axis
-CELL_BATCH = {"train_4k": 4, "prefill_32k": 1, "decode_32k": 8}
+# one device's share of each cell as (layers, batch), None layers being the
+# config's depth: train 4 x 4,096 tokens, a 32k prefill of one sequence,
+# decode_32k's 128 rows over the 16-wide data axis, long_500k's one row; a
+# model's serve cells share its weights, so they share a depth
+CELLS_FULL = {"train_4k": (None, 4), "prefill_32k": (None, 1),
+              "decode_32k": (None, 8)}
+CELL_PLAN = {
+    SERVE_ARCH: CELLS_FULL,
+    "xlstm-350m": dict(CELLS_FULL, long_500k=(None, 1)),
+    "hymba-1.5b": dict(CELLS_FULL, long_500k=(None, 1)),
+    # 48 layers' caches at 8 rows would be 103 GB: decode 4
+    "musicgen-large": dict(CELLS_FULL, decode_32k=(None, 4)),
+    # 7.2 B parameters' AdamW state is ~116 GB: train 4 of 32 layers
+    "llava-next-mistral-7b": dict(CELLS_FULL, train_4k=(4, 4)),
+    # 32 layers are ~84 GB of weights: serve phase 15's 8; train 1 (at
+    # 16(b)'s 2 the dry run predicts 68.71 GiB, and the card's train peaks
+    # ran 8-13 GiB over the prediction where the plain attention backward
+    # forms its f32 scores)
+    MOE_ARCH: {"train_4k": (1, 4), "prefill_32k": (MOE_LAYERS, 1),
+               "decode_32k": (MOE_LAYERS, 8)},
+    # 4.8 B parameters a layer: serve 2 of 64 (~23 GB); one layer's AdamW
+    # state alone is ~78 GB, so its train cell waits for four cards
+    "grok-1-314b": {"prefill_32k": (2, 1), "decode_32k": (2, 8)},
+}
+CELL_ARCHS = tuple(CELL_PLAN)
 CELL_TRAIN_STEPS = 4          # 17(b): a warm-up step and 3 timed ones
+# 17(b)'s peak learning rate (one warm-up step, then cosine); MusicGen's 48
+# layers at 3e-4 raised the loss over the four steps (8.143 -> 8.415), at
+# 5e-5 it fell at every step (8.143 -> 7.719)
+CELL_LR = {"musicgen-large": 5e-5}
 CELL_DECODE_STEPS = 3
+F32_LAYERS = {"grok-1-314b": 1}   # 17(b)'s 32k f32 check, else 2 layers
+GRAD_ARCHS = ("xlstm-350m", "hymba-1.5b", "musicgen-large")   # 17(d)
 GRAD_CHECK = (2, 512)         # 17(d): batch x tokens of the f32 check
+
+
+def cell_cfg(arch: str, shape: str):
+    """``arch``'s config at the depth ``CELL_PLAN`` gives ``shape``, and
+    the cell's batch."""
+    import dataclasses
+    from repro_torch.configs import registry
+    layers, b = CELL_PLAN[arch][shape]
+    cfg = registry.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, b
 
 
 class DryRuns:
     """17(a), started right after the build: ``repro_torch.launch.dryrun``
-    of each of ``CELL_ARCHS`` at each of ``CELL_SHAPES`` on one device at
-    ``CELL_BATCH`` (a 1x1 mesh), and ``SERVE_ARCH``'s on the single
-    production mesh (a fake world of 256 ranks) too, one subprocess a cell,
-    two at a time, on the CPU alone (no card visible), while phases 1-16
-    run."""
+    of every cell of ``CELL_PLAN`` on one device at its depth and batch (a
+    1x1 mesh, ``--layers`` and ``--global-batch``), and ``SERVE_ARCH``'s
+    three cells on the single production mesh (a fake world of 256 ranks)
+    too, one subprocess a cell, two at a time, on the CPU alone (no card
+    visible), while phases 1-16 run."""
 
     def __init__(self):
         import concurrent.futures
@@ -2448,15 +2515,17 @@ class DryRuns:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    CUDA_VISIBLE_DEVICES="")
         self.jobs = []
-        for arch in CELL_ARCHS:
-            for shape in CELL_SHAPES:
+        for arch, plan in CELL_PLAN.items():
+            for shape, (layers, b) in plan.items():
                 for mesh in (("single", "local") if arch == SERVE_ARCH
                              else ("local",)):
                     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                            "--arch", arch, "--shape", shape, "--mesh", mesh,
                            "--out-dir", self.dir]
                     if mesh == "local":
-                        cmd += ["--global-batch", str(CELL_BATCH[shape])]
+                        cmd += ["--global-batch", str(b)]
+                        if layers is not None:
+                            cmd += ["--layers", str(layers)]
                     self.jobs.append((arch, shape, mesh, cmd))
         import threading
         self.procs = []
@@ -2531,12 +2600,31 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def cell_train(cfg, dmesh, launches: dict) -> dict:
-    """train_4k at ``CELL_BATCH`` sequences: the cell's step on DTensors
-    from a seed, then ``make_train_step`` on plain tensors from the same
-    seed, losses and final parameters bit for bit; the DTensor run
-    launches each train kernel twice a layer a step (the forward and the
-    checkpoint's recompute under remat "full")."""
+def input_key(cfg) -> str:
+    """The model's input: token ids, or the frontend's embeddings."""
+    return "tokens" if cfg.frontend == "none" else "embeds"
+
+
+def lm_inputs(cfg, shape: tuple, seed: int, dtype=None):
+    """Token ids of ``shape`` on the card from a seed, or for a frontend
+    model (LLaVA's vision, MusicGen's audio stub) embeddings of ``shape`` x
+    d_model of N(0, 0.02^2) in ``dtype`` (the model's by default)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.frontend == "none":
+        return torch.randint(0, cfg.vocab, shape, generator=g,
+                             device="cuda", dtype=torch.int32)
+    return (torch.randn((*shape, cfg.d_model), generator=g, device="cuda")
+            * 0.02).to(dtype or cfg.torch_dtype)
+
+
+def cell_train(arch: str, dmesh, launches: dict) -> dict:
+    """train_4k at ``CELL_PLAN``'s depth and batch: the cell's step on
+    DTensors from a seed, then ``make_train_step`` on plain tensors from
+    the same seed, losses and final parameters bit for bit; the batch is
+    ``batch_at``'s with the config's frontend, as the trainer makes it; the
+    DTensor run launches each train kernel twice a layer a step (the
+    forward and the checkpoint's recompute under remat "full")."""
     import torch
     from repro_torch.data.tokens import DataConfig, batch_at
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2544,8 +2632,9 @@ def cell_train(cfg, dmesh, launches: dict) -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.training.optimizer import OptConfig, init_opt
     from repro_torch.training.train_loop import TrainConfig, make_train_step
-    b = CELL_BATCH["train_4k"]
-    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1,
+    cfg, b = cell_cfg(arch, "train_4k")
+    tcfg = TrainConfig(opt=OptConfig(lr=CELL_LR.get(arch, 3e-4),
+                                     warmup_steps=1,
                                      total_steps=CELL_TRAIN_STEPS))
     cell = input_specs(cfg, "train_4k", dmesh, tcfg, global_batch=b)
     want = {k: cfg.n_layers * 2 * CELL_TRAIN_STEPS
@@ -2555,9 +2644,11 @@ def cell_train(cfg, dmesh, launches: dict) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(17)
         params = tf.init_params(gen, cfg)
         batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=4097,
-                                    global_batch=b), 0)
-        return params, init_opt(params), {k: v.to(torch.int32)
-                                          for k, v in batch.items()}
+                                    global_batch=b), 0,
+                         frontend=cfg.frontend, d_model=cfg.d_model)
+        return params, init_opt(params), {
+            k: v.to(cfg.torch_dtype if k == "embeds" else torch.int32)
+            for k, v in batch.items()}
 
     def run(step, args):
         losses, secs = [], []
@@ -2595,14 +2686,16 @@ def cell_train(cfg, dmesh, launches: dict) -> dict:
         del args, params
     d, p = out["dtensor"], out["plain"]
     warm = statistics.mean(d["secs"][1:])
-    log(f"phase 17(b): {cfg.name} train_4k, {b} x 4096 tokens, "
-        f"{CELL_TRAIN_STEPS} steps: DTensor losses "
+    equal = d["losses"] == p["losses"] and same
+    log(f"phase 17(b): {cfg.name} train_4k, {cfg.n_layers} layers, {b} x "
+        f"4096 {input_key(cfg)}, {CELL_TRAIN_STEPS} steps: DTensor losses "
         f"{[round(x, 4) for x in d['losses']]}; steps 2-{CELL_TRAIN_STEPS} "
         f"{warm:.3f} s each ({b * 4096 / warm:.1f} train tokens/s; plain "
         f"tensors {statistics.mean(p['secs'][1:]):.3f} s), peak memory "
         f"{d['peak'] / 2**30:.2f} GiB (plain {p['peak'] / 2**30:.2f} GiB); "
-        f"launches a step { {k: v // CELL_TRAIN_STEPS for k, v in want.items()} }")
-    if d["losses"] != p["losses"] or not same:
+        f"launches a step { {k: v // CELL_TRAIN_STEPS for k, v in want.items()} }"
+        f"; DTensor == plain (losses and parameters): {equal}")
+    if not equal:
         raise AssertionError(f"the DTensor train steps differ from the "
                              f"plain ones: losses {d['losses']} vs "
                              f"{p['losses']}, parameters equal: {same}")
@@ -2612,7 +2705,7 @@ def cell_train(cfg, dmesh, launches: dict) -> dict:
     return dict(s=warm, tokens_s=b * 4096 / warm, peak=d["peak"])
 
 
-def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
+def cell_prefill(cfg, dmesh, params, batch: dict, launches: dict) -> dict:
     """prefill_32k at batch 1 on DTensors against the plain prefill on a
     fresh cache: last-token logits and the whole returned cache (ring,
     recurrent state, conv tail) bit for bit."""
@@ -2622,13 +2715,12 @@ def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.training.train_loop import make_serve_steps
     cell = input_specs(cfg, "prefill_32k", dmesh, global_batch=1)
-    s = toks.shape[1]
+    s = batch[input_key(cfg)].shape[1]
     cap = cfg.meta_tokens + s + 1
     want = {k: cfg.n_layers for k in lm_kernels(cfg, "prefill")}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = materialize(cell, (params, tf.init_cache(cfg, 1, cap),
-                              {"tokens": toks}))
+    args = materialize(cell, (params, tf.init_cache(cfg, 1, cap), batch))
     cell.fn(*args)                                      # warm-up
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -2642,10 +2734,12 @@ def cell_prefill(cfg, dmesh, params, toks, launches: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     prefill, _ = make_serve_steps(cfg)
     same = same_leaves(got, prefill(params, tf.init_cache(cfg, 1, cap),
-                                    {"tokens": toks}))
-    log(f"phase 17(b): {cfg.name} prefill_32k, 1 x {s} tokens: {sec:.3f} s "
-        f"({s / sec:.1f} tok/s), peak memory {peak / 2**30:.2f} GiB, "
-        f"launches {want}; DTensor == plain (logits and cache): {same}")
+                                    batch))
+    log(f"phase 17(b): {cfg.name} prefill_32k, {cfg.n_layers} layers, 1 x "
+        f"{s} {input_key(cfg)}: {sec:.3f} s ({s / sec:.1f} tok/s), peak "
+        f"memory {peak / 2**30:.2f} GiB, launches {want}; logits "
+        f"{tuple(local(got[0]).shape)}; DTensor == plain (logits and "
+        f"cache): {same}")
     if not same:
         raise AssertionError("the DTensor prefill differs from the plain one")
     return dict(s=sec, tokens_s=s / sec, peak=peak)
@@ -2676,29 +2770,30 @@ def filled_cache(cfg, b: int, capacity: int, first: int, seed: int):
     return cache
 
 
-def cell_decode(cfg, dmesh, params, launches: dict) -> dict:
-    """decode_32k at ``CELL_BATCH`` rows over a cache of meta + 32,768
-    positions (a ring of meta + window slots where the model has a window)
-    filled from a seed as it stands before its last ``CELL_DECODE_STEPS``
-    positions: those steps on DTensors (a warm-up pass, then a timed one),
-    each carrying the returned cache, then on plain tensors from the same
-    cache, logits and the final cache bit for bit."""
+def cell_decode(cfg, shape: str, b: int, dmesh, params,
+                launches: dict) -> dict:
+    """A decode shape (decode_32k, long_500k) at ``b`` rows over a cache
+    of meta + the shape's positions (a ring of meta + window slots where
+    the model has a window) filled from a seed as it stands before its
+    last ``CELL_DECODE_STEPS`` positions: those steps on DTensors (a
+    warm-up pass, then a timed one), each carrying the returned cache,
+    then on plain tensors from the same cache, logits and the final cache
+    bit for bit."""
     import torch
+    from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.cells import input_specs, materialize
     from repro_torch.models.attention import _slot
     from repro_torch.training.train_loop import make_serve_steps
-    b, n = CELL_BATCH["decode_32k"], CELL_DECODE_STEPS
-    cell = input_specs(cfg, "decode_32k", dmesh, global_batch=b)
-    cap = cfg.meta_tokens + 32768
+    n, key = CELL_DECODE_STEPS, input_key(cfg)
+    cell = input_specs(cfg, shape, dmesh, global_batch=b)
+    cap = cfg.meta_tokens + SHAPES[shape].seq_len
     first = cap - n
     want = {k: cfg.n_layers * n for k in lm_kernels(cfg, "decode")}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cache = filled_cache(cfg, b, cap, first, 18)
-    g = torch.Generator(device="cuda").manual_seed(18)
-    toks = torch.randint(0, cfg.vocab, (n, b, 1), generator=g,
-                         device="cuda", dtype=torch.int32)
+    toks = lm_inputs(cfg, (n, b, 1), 18)
     pos = [torch.tensor(first + i, dtype=torch.int32, device="cuda")
            for i in range(n)]
     # the ring slots the steps write: kept to put back before each pass,
@@ -2747,7 +2842,7 @@ def cell_decode(cfg, dmesh, params, launches: dict) -> dict:
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t0) / n
     lc = launch_counts()
-    check_launches(f"17(b) {cfg.name} decode_32k", lc, want)
+    check_launches(f"17(b) {cfg.name} {shape}", lc, want)
     add_launches(launches, lc)
     peak = torch.cuda.max_memory_allocated()
     restore()
@@ -2756,47 +2851,50 @@ def cell_decode(cfg, dmesh, params, launches: dict) -> dict:
     t0 = time.perf_counter()
     wanted, cur = [], cache
     for i in range(n):
-        logits, cur = decode(params, cur, tokens=toks[i], pos0=pos[i])
+        logits, cur = decode(params, cur, pos0=pos[i], **{key: toks[i]})
         wanted.append(logits)
     torch.cuda.synchronize()
     plain_sec = (time.perf_counter() - t0) / n
     same = same_leaves(got, wanted) and same_leaves(got_state, written(cur))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
     cache_gb = sum(t.numel() * t.element_size() for t in
                    local_leaves(cache)) / 1e9
-    log(f"phase 17(b): {cfg.name} decode_32k, batch {b} at positions "
-        f"{first}-{cap - 1} ({cache_gb:.2f} GB of cache): "
+    log(f"phase 17(b): {cfg.name} {shape}, {cfg.n_layers} layers, batch {b} "
+        f"at positions {first}-{cap - 1} ({cache_gb:.2f} GB of cache): "
         f"{sec * 1e3:.2f} ms a step ({b / sec:.1f} tok/s; plain tensors "
         f"{plain_sec * 1e3:.2f} ms), peak memory {peak / 2**30:.2f} GiB, "
         f"launches {want}; DTensor == plain (logits, written slots and "
-        f"recurrent state): {same}")
-    if not same:
-        raise AssertionError("the DTensor decode differs from the plain one")
+        f"recurrent state): {same}; finite: {finite}")
+    if not same or not finite:
+        raise AssertionError(f"the DTensor {shape} differs from the plain "
+                             f"one ({same}) or is not finite ({finite})")
     del cache, cur, kept, got_state
     return dict(s=sec, tokens_s=b / sec, peak=peak)
 
 
-def check_prefill_32k_f32(cfg, toks) -> None:
+def check_prefill_32k_f32(cfg, batch: dict, layers: int) -> None:
     """The kernel route against the plain route (q-chunked attention,
-    plain GLA) at 32k on the card: f32, 2 layers, last-token logits within
-    1e-3 of max |logit|."""
+    plain GLA) at 32k on the card: f32, ``layers`` layers, last-token
+    logits within 1e-3 of max |logit|."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as tf
     torch.backends.cuda.matmul.allow_tf32 = False
-    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    c32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(19),
                             c32)
     outs = {}
     with torch.no_grad():
         for mode in (True, "ref"):
             logits, _, _ = tf.forward(params, dataclasses.replace(
-                c32, use_kernel=mode), tokens=toks, mode="prefill")
+                c32, use_kernel=mode), mode="prefill", **batch)
             outs[mode] = logits[0, -1]
+    del params
     rel = float((outs[True] - outs["ref"]).abs().max()
                 / outs["ref"].abs().max())
-    log(f"phase 17(b): {cfg.name} prefill_32k f32 at 2 layers, kernel vs "
-        f"plain route: last-token logits max |diff| / max |logit| = "
-        f"{rel:.3e}")
+    log(f"phase 17(b): {cfg.name} prefill_32k f32 at {layers} layers, "
+        f"kernel vs plain route: last-token logits max |diff| / max |logit| "
+        f"= {rel:.3e}")
     if not rel <= 1e-3 or not bool(torch.isfinite(outs[True]).all()):
         raise AssertionError(f"the 32k kernel route differs from the plain "
                              f"route by {rel} of max |logit|")
@@ -2804,10 +2902,10 @@ def check_prefill_32k_f32(cfg, toks) -> None:
 
 def check_grads_f32(cfg) -> None:
     """17(d): one ``value_and_grad`` of ``cfg`` at full width, 2 layers,
-    f32, ``GRAD_CHECK`` tokens from a seed, through the kernels' forward
-    (each train kernel twice a layer: the forward and the recompute)
-    against the plain route: the loss and every gradient element within
-    atol 1e-5 + rtol 1e-4, all finite."""
+    f32, ``GRAD_CHECK`` tokens (or frontend embeddings) from a seed,
+    through the kernels' forward (each train kernel twice a layer: the
+    forward and the recompute) against the plain route: the loss and every
+    gradient element within atol 1e-5 + rtol 1e-4, all finite."""
     import dataclasses
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2822,7 +2920,9 @@ def check_grads_f32(cfg) -> None:
     toks = torch.randint(0, cfg.vocab, (b, s + 1), dtype=torch.int32,
                          device="cuda", generator=torch.Generator(
                              device="cuda").manual_seed(23))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"labels": toks[:, 1:]}
+    batch[input_key(cfg)] = (toks[:, :-1] if cfg.frontend == "none" else
+                             lm_inputs(c32, (b, s), 24))
     out = {}
     for mode in (True, "ref"):
         reset_launch_counts()
@@ -2842,9 +2942,10 @@ def check_grads_f32(cfg) -> None:
                        .max())
         worst, n = max(worst, excess), n + got.numel()
     log(f"phase 17(d): {cfg.name} f32 value_and_grad at 2 layers, {b} x {s} "
-        f"tokens, kernels vs plain: loss {float(out[True][0]):.6f} vs "
-        f"{float(out['ref'][0]):.6f}; {len(out[True]) - 1} gradients, {n} "
-        f"elements, max |diff| / (1e-5 + 1e-4 |plain|) = {worst:.3f}")
+        f"{input_key(cfg)}, kernels vs plain: loss "
+        f"{float(out[True][0]):.6f} vs {float(out['ref'][0]):.6f}; "
+        f"{len(out[True]) - 1} gradients, {n} elements, max |diff| / (1e-5 "
+        f"+ 1e-4 |plain|) = {worst:.3f}")
     if not worst <= 1.0:
         raise AssertionError(f"17(d) {cfg.name}: gradients differ by "
                              f"{worst} times the bound")
@@ -2887,15 +2988,14 @@ def op_dispatch_cost() -> None:
 
 
 def phase_cells(launches: dict, dry: DryRuns, archs=CELL_ARCHS) -> None:
-    """17: for each of ``archs``, (b) the three cells through
+    """17: for each of ``archs``, (b) its cells of ``CELL_PLAN`` through
     ``input_specs`` on the local mesh as DTensors over a one-rank NCCL
     ``DeviceMesh``, each against the same step on plain tensors, and the
-    32k prefill's f32 check; (d) the GLA family's f32 gradient check;
-    (c) the custom op's dispatch cost; then (a)'s records beside (b)'s
-    measurements."""
+    32k prefill's f32 check; (d) the f32 gradient check of
+    ``GRAD_ARCHS``; (c) the custom op's dispatch cost; then (a)'s records
+    beside (b)'s measurements."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import registry
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import device_mesh, make_local_mesh
     from repro_torch.models import transformer as tf
@@ -2906,28 +3006,37 @@ def phase_cells(launches: dict, dry: DryRuns, archs=CELL_ARCHS) -> None:
     try:
         dmesh = device_mesh(make_local_mesh(), "cuda")
         for arch in archs:
-            cfg = registry.get(arch)
-            log(f"phase 17(b): {cfg.name} at full width ({cfg.n_layers} "
-                f"layers, d {cfg.d_model}, family {cfg.family}, vocab "
-                f"{cfg.vocab}) on {dmesh}")
-            meas[(arch, "train_4k")] = cell_train(cfg, dmesh, launches)
-            torch.cuda.empty_cache()
+            plan = CELL_PLAN[arch]
+            serve = [sh for sh in plan if sh != "train_4k"]
+            cfg, _ = cell_cfg(arch, serve[0])
+            log(f"phase 17(b): {arch} at full width (d {cfg.d_model}, "
+                f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.d_head}, "
+                f"family {cfg.family}, input {input_key(cfg)}, vocab "
+                f"{cfg.vocab} x {cfg.out_heads} heads, experts "
+                f"{cfg.n_experts} top {cfg.top_k}, softcap "
+                f"{cfg.logit_softcap}) on {dmesh}; (layers, batch) a cell: "
+                f"{plan}")
+            t0 = time.perf_counter()
+            if "train_4k" in plan:
+                meas[(arch, "train_4k")] = cell_train(arch, dmesh, launches)
+                torch.cuda.empty_cache()
             params = tf.init_params(torch.Generator(
                 device="cuda").manual_seed(17), cfg)
-            toks = torch.randint(0, cfg.vocab, (1, 32768), device="cuda",
-                                 generator=torch.Generator(
-                                     device="cuda").manual_seed(21),
-                                 dtype=torch.int32)
+            batch = {input_key(cfg): lm_inputs(cfg, (1, 32768), 21)}
             meas[(arch, "prefill_32k")] = cell_prefill(cfg, dmesh, params,
-                                                       toks, launches)
-            meas[(arch, "decode_32k")] = cell_decode(cfg, dmesh, params,
-                                                     launches)
+                                                       batch, launches)
+            for shape in serve[1:]:
+                meas[(arch, shape)] = cell_decode(
+                    cfg, shape, plan[shape][1], dmesh, params, launches)
+                torch.cuda.empty_cache()
             del params
             torch.cuda.empty_cache()
-            check_prefill_32k_f32(cfg, toks)
-            if "gla_chunk" in lm_kernels(cfg, "train"):
+            check_prefill_32k_f32(cfg, batch, F32_LAYERS.get(arch, 2))
+            if arch in GRAD_ARCHS:
                 check_grads_f32(cfg)
             torch.cuda.empty_cache()
+            log(f"phase 17(b): {arch}'s cells and checks took "
+                f"{time.perf_counter() - t0:.1f} s")
         op_dispatch_cost()
     finally:
         dist.destroy_process_group()
@@ -2953,10 +3062,11 @@ def phase_cells(launches: dict, dry: DryRuns, archs=CELL_ARCHS) -> None:
         rec = recs[(arch, shape, "local")]
         bound = max(rec["cost"]["flops"] / roofline.PEAK_FLOPS,
                     rec["cost"]["bytes"] / roofline.HBM_BW)
-        log(f"phase 17: {arch} {shape} on one card at batch "
-            f"{CELL_BATCH[shape]}: measured {m['s'] * 1e3:.2f} ms a step, "
-            f"{m['tokens_s']:.1f} tokens/s, peak {m['peak'] / 2**30:.2f} "
-            f"GiB; the dry run's local cell ({rec['run_s']} s) predicts peak "
+        log(f"phase 17: {arch} {shape} on one card at {rec['n_layers']} "
+            f"layers, batch {CELL_PLAN[arch][shape][1]}: measured "
+            f"{m['s'] * 1e3:.2f} ms a step, {m['tokens_s']:.1f} tokens/s, "
+            f"peak {m['peak'] / 2**30:.2f} GiB; the dry run's local cell "
+            f"({rec['run_s']} s) predicts peak "
             f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB, "
             f"{rec['cost']['flops']:.4e} flops, "
             f"{rec['cost']['bytes']:.4e} bytes, a roofline bound of "
@@ -2990,7 +3100,7 @@ def main() -> int:
 
 
 # --- phase 18: fig_realworld ---------------------------------------------------
-REALWORLD_REQUESTS = 1_250    # phase 18's trace, cut from 1,000,000
+REALWORLD_REQUESTS = 625      # phase 18's trace, cut from 1,000,000
 
 
 def phase_realworld(launches: dict) -> None:
@@ -3380,10 +3490,10 @@ def run_phases(args, t0, dry) -> int:
     launches, grids = {}, {}
     timed("2", phase_paper, launches)
     timed("3", phase_deploy, args.requests, launches)
-    timed("5", phase_serve, 5, SERVE_ARCH, launches)
+    timed("5", phase_serve, 5, SERVE_ARCH, launches, max_new=SERVE_NEW)
     gla = timed("6", phase_gla)
     timings["gla_chunk"] = gla["xlstm-350m"]
-    timed("7", phase_serve, 7, "xlstm-350m", launches)
+    timed("7", phase_serve, 7, "xlstm-350m", launches, max_new=SERVE_NEW)
     timed("8", phase_serve, 8, "hymba-1.5b", launches, max_new=HYMBA_NEW)
     timed("9a", phase_grid_fig2, launches, grids)
     timed("9b", phase_grid_deploy, GRID_REQUESTS, launches)

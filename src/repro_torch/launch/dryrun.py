@@ -10,6 +10,9 @@ Run everything (each cell in a fresh subprocess):
 One device's share of a cut cell (a 1x1 mesh, a fake world of one):
     PYTHONPATH=src python -m repro_torch.launch.dryrun \
         --arch stablelm-1.6b --shape train_4k --mesh local --global-batch 4
+``--layers N`` cuts the model's depth to N layers (default: the config's),
+for a cell that one card runs at a cut depth; the record's ``n_layers`` is
+the depth traced.
 
 Where the JAX package lowers and compiles its step on 256/512 fake host
 devices, the port runs its step once, eagerly, as DTensors over a
@@ -382,11 +385,12 @@ def dry_run(cfg, shape: str, mesh, *, tcfg=None, seq_shard=None,
 def run_cell(arch: str, shape: str, mesh_kind: str, *, seq_shard=None,
              microbatches: int = 1, remat=None, kv_dtype=None,
              layout: str = "tp_fsdp", out_dir: Path = RESULTS,
-             tag: str = "", global_batch: int | None = None) -> dict:
+             tag: str = "", global_batch: int | None = None,
+             layers: int | None = None) -> dict:
     """Trace one cell on the production mesh (``mesh_kind`` "single" or
     "multi"), or on one device ("local", a 1x1 mesh), and write its
     record; a failure is recorded with its error, never hidden.
-    ``global_batch`` cuts the shape's batch."""
+    ``global_batch`` cuts the shape's batch, ``layers`` the depth."""
     from ..configs import registry
     from ..training.optimizer import OptConfig
     from ..training.train_loop import TrainConfig
@@ -398,6 +402,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, seq_shard=None,
         overrides["remat"] = remat
     if kv_dtype is not None:
         overrides["kv_dtype"] = kv_dtype
+    if layers is not None:
+        overrides["n_layers"] = layers
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     mesh = (AbstractMesh(("data", "model"), (1, 1)) if mesh_kind == "local"
@@ -406,7 +412,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, seq_shard=None,
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
            "devices": mesh.size, "tag": tag, "microbatches": microbatches,
            "layout": layout, "calibrated": True,
-           "global_batch": global_batch}
+           "global_batch": global_batch, "n_layers": cfg.n_layers}
     try:
         rec.update(dry_run(cfg, shape, mesh, tcfg=tcfg, seq_shard=seq_shard,
                            layout=layout, global_batch=global_batch))
@@ -454,6 +460,9 @@ def main(argv=None) -> int:
                     choices=["single", "multi", "local"])
     ap.add_argument("--global-batch", type=int, default=None,
                     help="cut the shape's global batch (one cell)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model's depth (one cell; default: the "
+                         "config's)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -508,7 +517,7 @@ def main(argv=None) -> int:
                    microbatches=args.microbatches, remat=args.remat,
                    kv_dtype=args.kv_dtype, seq_shard=seq_shard,
                    layout=args.layout, out_dir=out_dir, tag=args.tag,
-                   global_batch=args.global_batch)
+                   global_batch=args.global_batch, layers=args.layers)
     return 0 if rec.get("ok") else 1
 
 

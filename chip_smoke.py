@@ -35,7 +35,9 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    (``DEPLOY_REQUESTS`` requests, or ``--requests``), with the kernel path held against the plain path and the ``evict_top=0`` path;
 4. the two attention kernels against their plain versions on the card over
    head widths 16/32/64/128 (bf16 takes the tensor-core prefill kernel,
-   f32 the CUDA-core one), GQA groups 1/4/12/24, ragged Sq and Sk
+   f32 the CUDA-core one), GQA groups 1/4/12/24 and 7 (DeepSeek-Coder-
+   33B's 56 q / 8 KV heads: a decode q tile of 8 with an idle row), ragged
+   Sq and Sk
    (Sq 17, 31 and 33 against the 16-row mma tile), windows of 4096 (with
    and without a sink) and 32, softcap 0 and 30, a wrapped ring-buffer
    cache with empty slots, decode caches of 1, 63, 65 and 129 slots
@@ -194,11 +196,17 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    (``audio``: ``embeds`` in, four codebook heads out) and
    LLaVA-NeXT-Mistral-7B (``vlm``: ``embeds`` in) at the same three;
    phi3.5-MoE at the three and Grok-1 (8 GeGLU experts, top 2, attention
-   softcap 30) at prefill_32k and decode_32k.  A train cell takes 4 x
-   4,096 tokens (or embeddings, ``batch_at`` with the config's frontend)
-   for ``CELL_TRAIN_STEPS`` steps at a peak learning rate of 3e-4
-   (``CELL_LR``: MusicGen's 48 layers step at 5e-5, where at 3e-4 their
-   loss rose over the four steps), each train kernel
+   softcap 30) at prefill_32k and decode_32k; the ``dense`` configs
+   DeepSeek-Coder-33B (56 q / 8 KV heads, SwiGLU), Minitron-8B
+   (squared-ReLU MLP, a 256,000-entry vocab) and StarCoder2-15B (plain
+   GELU MLP, a 4,096 window with no sink: its 32k decode writes a
+   4,096-slot ring) at the three, and DeepSeek's decode_32k again over an
+   fp8 e4m3 KV cache (``F8_DECODE``: bit for bit, finite, the cache half
+   the bf16 cell's bytes).  A train cell takes 4 x 4,096 tokens (or
+   embeddings, ``batch_at`` with the config's frontend; fewer rows where
+   ``CELL_PLAN`` cuts them) for ``CELL_TRAIN_STEPS`` steps at a peak
+   learning rate of 3e-4 (``CELL_LR`` where a model's loss rose over the
+   four steps at 3e-4), each train kernel
    (``flash_attention``, ``gla_chunk``) twice a layer a step; a prefill 32,768 positions, each
    prefill kernel once a layer; a decode shape its rows at the last
    ``CELL_DECODE_STEPS`` positions of meta + 32,768 (decode_32k) or meta
@@ -227,8 +235,14 @@ Phases (any mismatch or fault raises and the script exits non-zero):
    predicts a 68.71 GiB peak, and the card's peaks ran 8-13 GiB over it
    where the plain attention backward forms its scores); Grok-1 serves 2
    of 64 layers (4.8 B parameters a layer) and has no train cell (one
-   layer's AdamW state is ~78 GB); every other cell runs at its config's
-   depth;
+   layer's AdamW state is ~78 GB); DeepSeek-Coder-33B serves 24 of 62
+   layers (1.06 GB of weights and ~1 GiB of 8-row cache a layer) and
+   trains 2 layers at 2 rows, StarCoder2-15B trains 3 layers at 2 rows
+   (at 4 rows the plain attention backward's f32 scores pass the card),
+   Minitron-8B trains 4 layers at 1 row (its loss's f32 (B, 4,096,
+   256,000) copies are 4.2 GB a row); StableLM, xLSTM, Hymba and MusicGen
+   train 12 of 24, 12 of 24, 16 of 32 and 24 of 48 layers for the time
+   limit (below); every other cell runs at its config's depth;
 18. ``fig_realworld``: ``repro_torch.figures.fig_realworld.run`` at
    ``REALWORLD_REQUESTS`` requests (cut from its 1,000,000, which takes
    a 3000 s call of its own: ``figures.run --only realworld``) with every
@@ -326,6 +340,18 @@ request (phases 5, 7 and 15, and phase 15's profiled request, cut from
 32; phase 15's profile alone took 26.2 s) and ``REALWORLD_REQUESTS``
 1,250 -> 625.
 
+Phase 17's ``dense`` cells (DeepSeek-Coder-33B, Minitron-8B and
+StarCoder2-15B, and DeepSeek's fp8 decode: 108.6 s of the phase on an
+H100 80GB HBM3 at 700 W) were paid for by halving the two longest train
+cells: Hymba's train_4k 32 -> 16 layers (its 8 steps, DTensor and plain,
+~42 s -> ~21 s) and MusicGen's 48 -> 24 (~47 s -> ~23 s; at 24 layers
+its loss falls at the default peak rate of 3e-4, which it now takes).  With
+them the script took 996.9 s (phase 17 336.0 s) on a host 1.1-1.9x
+slower on the host-bound phases than the run that took 770.5 s, so
+StableLM's and xLSTM's train_4k were halved too, 24 -> 12 layers (~12 s
+each on that host), and phase 3's ``DEPLOY_REQUESTS`` 5,000 -> 2,500
+(~15 s).
+
 The kernel timings of phases 1, 4 and 6 come from
 ``repro_torch.figures.bench_kernels`` (the ``kernels`` job of
 ``repro_torch.figures.run``); their checks are here.
@@ -358,7 +384,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 TOP = 8                       # the simulator's EVICT_TOP
 N_DEPLOY = 1 << 20            # the million-key universe of probe_memory
 PAPER_REQUESTS = 5_000        # phase 2's fig2 workload, cut from 30,000
-DEPLOY_REQUESTS = 5_000       # phase 3's replay, cut from 20,000
+DEPLOY_REQUESTS = 2_500       # phase 3's replay, cut from 20,000
 GRID_REQUESTS = 1_250         # phase 9b's replay, cut from 5,000
 FIG2_GRID_REQUESTS = 2_500    # phases 9a-10's fig2, cut from 10,000
 STREAM_REQUESTS = 5_000       # phases 10-11's stream, cut from 20,000
@@ -913,7 +939,7 @@ def phase_attention() -> dict:
     cases = 0
     for dt, tdt in dts.items():
         for dh in (16, 32, 64, 128):
-            for h, kv in ((4, 4), (8, 2), (12, 1), (24, 1)):
+            for h, kv in ((4, 4), (8, 2), (12, 1), (24, 1), (56, 8)):
                 for b, sq, sk in ((2, 100, 100), (1, 130, 300)):
                     q, k, v = (rnd((b, sq, h, dh), tdt),
                                rnd((b, sk, kv, dh), tdt),
@@ -2459,11 +2485,14 @@ def phase_train(launches: dict) -> None:
 CELLS_FULL = {"train_4k": (None, 4), "prefill_32k": (None, 1),
               "decode_32k": (None, 8)}
 CELL_PLAN = {
-    SERVE_ARCH: CELLS_FULL,
-    "xlstm-350m": dict(CELLS_FULL, long_500k=(None, 1)),
-    "hymba-1.5b": dict(CELLS_FULL, long_500k=(None, 1)),
+    # the train cells of StableLM, xLSTM, Hymba and MusicGen run half their
+    # depth for the time limit (the docstring's cuts)
+    SERVE_ARCH: dict(CELLS_FULL, train_4k=(12, 4)),
+    "xlstm-350m": dict(CELLS_FULL, train_4k=(12, 4), long_500k=(None, 1)),
+    "hymba-1.5b": dict(CELLS_FULL, train_4k=(16, 4), long_500k=(None, 1)),
     # 48 layers' caches at 8 rows would be 103 GB: decode 4
-    "musicgen-large": dict(CELLS_FULL, decode_32k=(None, 4)),
+    "musicgen-large": dict(CELLS_FULL, train_4k=(24, 4),
+                           decode_32k=(None, 4)),
     # 7.2 B parameters' AdamW state is ~116 GB: train 4 of 32 layers
     "llava-next-mistral-7b": dict(CELLS_FULL, train_4k=(4, 4)),
     # 32 layers are ~84 GB of weights: serve phase 15's 8; train 1 (at
@@ -2475,15 +2504,28 @@ CELL_PLAN = {
     # 4.8 B parameters a layer: serve 2 of 64 (~23 GB); one layer's AdamW
     # state alone is ~78 GB, so its train cell waits for four cards
     "grok-1-314b": {"prefill_32k": (2, 1), "decode_32k": (2, 8)},
+    # 1.06 GB of weights a layer and a 32k cache of ~1 GiB a layer at 8
+    # rows: serve 24 of 62 layers; train 2 layers at 2 rows (4 rows put the
+    # plain attention backward's f32 scores over the card)
+    "deepseek-coder-33b": {"train_4k": (2, 2), "prefill_32k": (24, 1),
+                           "decode_32k": (24, 8)},
+    # the loss's f32 (B, 4,096, 256,000) copies, 4.2 GB a row, bound the
+    # train cell, not its depth: train 4 layers at 1 row
+    "minitron-8b": dict(CELLS_FULL, train_4k=(4, 1)),
+    # 15 B parameters' AdamW state is over 200 GB: train 3 layers, at 2 rows
+    # (at 4 the plain attention backward's f32 scores pass the card)
+    "starcoder2-15b": dict(CELLS_FULL, train_4k=(3, 2)),
 }
 CELL_ARCHS = tuple(CELL_PLAN)
 CELL_TRAIN_STEPS = 4          # 17(b): a warm-up step and 3 timed ones
-# 17(b)'s peak learning rate (one warm-up step, then cosine); MusicGen's 48
-# layers at 3e-4 raised the loss over the four steps (8.143 -> 8.415), at
-# 5e-5 it fell at every step (8.143 -> 7.719)
-CELL_LR = {"musicgen-large": 5e-5}
+# 17(b)'s peak learning rate (one warm-up step, then cosine), 3e-4 unless
+# named here: DeepSeek's 2 layers of d 7168 ended above their first loss
+# at 3e-4 (10.894 -> 15.738 -> 13.701 -> 10.909); at 3e-5 the plain steps
+# fell at every step (10.894 -> 9.158), at 5e-5-2e-4 they rose at step 2
+CELL_LR = {"deepseek-coder-33b": 3e-5}
 CELL_DECODE_STEPS = 3
 F32_LAYERS = {"grok-1-314b": 1}   # 17(b)'s 32k f32 check, else 2 layers
+F8_DECODE = ("deepseek-coder-33b",)   # 17(b): decode_32k with an fp8 cache
 GRAD_ARCHS = ("xlstm-350m", "hymba-1.5b", "musicgen-large")   # 17(d)
 GRAD_CHECK = (2, 512)         # 17(d): batch x tokens of the f32 check
 
@@ -2761,8 +2803,10 @@ def filled_cache(cfg, b: int, capacity: int, first: int, seed: int):
             ring = a["k"].shape[1] - sink
             pos = torch.cat([torch.arange(min(sink, first)),
                              torch.arange(max(sink, first - ring), first)])
-            a["k"].normal_(generator=g)
-            a["v"].normal_(generator=g)
+            for t in (a["k"], a["v"]):
+                # drawn in the model's dtype: an fp8 cache has no normal_
+                t.copy_(torch.empty_like(t, dtype=cfg.torch_dtype).normal_(
+                    generator=g))
             a["kpos"][_slot(pos, sink, ring).cuda()] = pos.to(
                 torch.int32).cuda()
         for t in c.get("ssm", {}).values():
@@ -2860,7 +2904,8 @@ def cell_decode(cfg, shape: str, b: int, dmesh, params,
     cache_gb = sum(t.numel() * t.element_size() for t in
                    local_leaves(cache)) / 1e9
     log(f"phase 17(b): {cfg.name} {shape}, {cfg.n_layers} layers, batch {b} "
-        f"at positions {first}-{cap - 1} ({cache_gb:.2f} GB of cache): "
+        f"at positions {first}-{cap - 1} ({cache_gb:.2f} GB of "
+        f"{cfg.kv_dtype} cache): "
         f"{sec * 1e3:.2f} ms a step ({b / sec:.1f} tok/s; plain tensors "
         f"{plain_sec * 1e3:.2f} ms), peak memory {peak / 2**30:.2f} GiB, "
         f"launches {want}; DTensor == plain (logits, written slots and "
@@ -2869,7 +2914,23 @@ def cell_decode(cfg, shape: str, b: int, dmesh, params,
         raise AssertionError(f"the DTensor {shape} differs from the plain "
                              f"one ({same}) or is not finite ({finite})")
     del cache, cur, kept, got_state
-    return dict(s=sec, tokens_s=b / sec, peak=peak)
+    return dict(s=sec, tokens_s=b / sec, peak=peak, cache_gb=cache_gb)
+
+
+def check_f8_decode(cfg, b: int, dmesh, params, bf16: dict,
+                    launches: dict) -> None:
+    """decode_32k again over an fp8 e4m3 KV cache (``kv_dtype="f8"``):
+    ``cell_decode``'s checks, and the cache about half the bytes of the
+    bf16 cell's (``bf16``, its measurement)."""
+    import dataclasses
+    got = cell_decode(dataclasses.replace(cfg, kv_dtype="f8"), "decode_32k",
+                      b, dmesh, params, launches)
+    ratio = got["cache_gb"] / bf16["cache_gb"]
+    log(f"phase 17(b): {cfg.name} decode_32k fp8 cache: {got['cache_gb']:.2f}"
+        f" GB, {ratio:.4f} of the bf16 cache's {bf16['cache_gb']:.2f} GB; "
+        f"{got['s'] * 1e3:.2f} ms a step (bf16 {bf16['s'] * 1e3:.2f} ms)")
+    if not 0.5 <= ratio < 0.51:
+        raise AssertionError(f"the fp8 cache is {ratio} of the bf16 one")
 
 
 def check_prefill_32k_f32(cfg, batch: dict, layers: int) -> None:
@@ -3029,6 +3090,9 @@ def phase_cells(launches: dict, dry: DryRuns, archs=CELL_ARCHS) -> None:
                 meas[(arch, shape)] = cell_decode(
                     cfg, shape, plan[shape][1], dmesh, params, launches)
                 torch.cuda.empty_cache()
+            if arch in F8_DECODE:
+                check_f8_decode(cfg, plan["decode_32k"][1], dmesh, params,
+                                meas[(arch, "decode_32k")], launches)
             del params
             torch.cuda.empty_cache()
             check_prefill_32k_f32(cfg, batch, F32_LAYERS.get(arch, 2))

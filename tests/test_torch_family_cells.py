@@ -46,7 +46,8 @@ DECODE_STEPS = 3
 # record a cell: ``equal`` (DTensors == plain tensors, bit for bit) and
 # ``finite``.  ``seq`` cuts each named shape's sequence; a shape it does not
 # name keeps its length.  A decode shape's cache is filled from a seed as it
-# stands before its last ``n_dec`` positions.
+# stands before its last ``n_dec`` positions.  ``kv_dtype`` is every
+# config's KV-cache dtype ("bf16", or "f8": fp8 e4m3).
 SCRIPT = textwrap.dedent("""
     import dataclasses, json, sys
     import torch
@@ -64,9 +65,10 @@ SCRIPT = textwrap.dedent("""
                                                  make_serve_steps,
                                                  make_train_step)
 
-    (pg_file, archs, shapes, seq, b, n_dec) = (
+    (pg_file, archs, shapes, seq, b, n_dec, kv_dtype) = (
         sys.argv[1], json.loads(sys.argv[2]), json.loads(sys.argv[3]),
-        json.loads(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]))
+        json.loads(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]),
+        sys.argv[7])
     for name, n in seq.items():
         SHAPES[name] = dataclasses.replace(SHAPES[name], seq_len=n)
     dist.init_process_group("gloo", init_method="file://" + pg_file,
@@ -149,8 +151,10 @@ SCRIPT = textwrap.dedent("""
                 pos = torch.cat([torch.arange(min(sink, first)),
                                  torch.arange(max(sink, first - ring),
                                               first)]).to(torch.int32)
-                a["k"].normal_(generator=g)
-                a["v"].normal_(generator=g)
+                for t in (a["k"], a["v"]):
+                    # drawn in the model's dtype: fp8 has no normal_
+                    t.copy_(torch.empty_like(t, dtype=cfg.torch_dtype)
+                            .normal_(generator=g))
                 a["kpos"][_slot(pos.long(), sink, ring)] = pos
             if "ssm" in c:
                 for k in ("S", "n", "conv"):
@@ -187,7 +191,7 @@ SCRIPT = textwrap.dedent("""
 
     run = {"train": train, "prefill": prefill, "decode": decode}
     for arch in archs:
-        cfg = registry.smoke(arch)
+        cfg = dataclasses.replace(registry.smoke(arch), kv_dtype=kv_dtype)
         for shape in shapes:
             rec = run[SHAPES[shape].kind](cfg, shape, SHAPES[shape].seq_len)
             rec.update(arch=arch, shape=shape)
@@ -197,13 +201,15 @@ SCRIPT = textwrap.dedent("""
 
 
 def run_cells(tmp_dir, archs, shapes, seq, batch=BATCH,
-              decode_steps=DECODE_STEPS, timeout=600) -> dict:
-    """``SCRIPT`` in a subprocess: {(arch, shape): record}."""
+              decode_steps=DECODE_STEPS, timeout=600,
+              kv_dtype="bf16") -> dict:
+    """``SCRIPT`` in a subprocess, the serving caches in ``kv_dtype``:
+    {(arch, shape): record}."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_dir / "pg"),
          json.dumps(list(archs)), json.dumps(list(shapes)), json.dumps(seq),
-         str(batch), str(decode_steps)],
+         str(batch), str(decode_steps), kv_dtype],
         env=env, capture_output=True, text=True, timeout=timeout)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-5000:]
     recs = [json.loads(line) for line in r.stdout.splitlines()

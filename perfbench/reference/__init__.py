@@ -1,0 +1,3 @@
+"""Plain references, one module a model family, named by a
+configuration file's ``reference`` key.  They import nothing of the
+program."""
